@@ -1,0 +1,269 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port (``pikazoo_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with one CUDA card, ``nvcc``
+and ``nvidia-smi``.  It builds every kernel of the port from the sources in
+the checkout, holds each against its plain PyTorch version on the card,
+drives the port's main path (``PikaZoo.reset_batch`` / ``step_batch``) with
+rule-AI and random-action seats, and compares a card trajectory with a CPU
+trajectory leaf by leaf.  Every phase prints one line; any failure raises and
+the script exits non-zero.  The last line is a JSON object naming the device.
+Without a CUDA device it exits with status 1 before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from pikazoo_tpu_torch import EnvConfig, PikaZoo
+from pikazoo_tpu_torch.core import predict_cuda
+from pikazoo_tpu_torch.core.predict import landing_sims_any
+from pikazoo_tpu_torch.envs import OBS_HIGH, OBS_LOW
+
+AI_BATCH, AI_FRAMES = 65536, 500          # rule-AI self-play (both seats)
+RANDOM_BATCH, RANDOM_FRAMES = 262144, 200  # random-action self-play
+PARITY_BATCH, PARITY_FRAMES = 4096, 300    # card vs CPU, leaf by leaf
+HARVEST_FRAME = 300
+# Observation dim 33, the ball's y velocity, can pass its declared OBS_HIGH
+# (124): a smash doubles |y_velocity|, so a ball smashed again on its way
+# down exceeds it, in the JAX package as in the port
+# (tests/test_torch_core.py::test_chained_smash_passes_declared_obs_high).
+LOOSE_OBS_HIGH = 33
+
+# The net-trap and edge states of tests/test_predict_pallas.py: pure net trap
+# (fast exit), the strict < 192 band edge, in-column moving, fresh serve and
+# a wall-hugging lob.
+NET_TRAP_CASES = np.array([
+    [216, 180, 0, 1],
+    [216, 192, 0, 0],
+    [200, 177, 3, 10],
+    [230, 190, -1, -5],
+    [56, 0, 0, 1],
+    [432, 100, 20, -60],
+], np.int32)
+
+
+def leaves(tree):
+    """The tensors of a (nested) NamedTuple, in field order."""
+    if torch.is_tensor(tree):
+        return [tree]
+    return [leaf for sub in tree for leaf in leaves(sub)]
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` on the card, by CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def random_ball_states(n: int, seed: int, device):
+    """The ranges of tests/test_predict_pallas.py::random_ball_states."""
+    rng = np.random.default_rng(seed)
+    cols = (rng.integers(20, 433, n), rng.integers(0, 253, n),
+            rng.integers(-20, 21, n), rng.integers(-60, 61, n))
+    return tuple(torch.tensor(c, dtype=torch.int32, device=device) for c in cols)
+
+
+def harvest_ball_states(device, batch: int, frames: int):
+    """Ball (x, y, vx, vy) after ``frames`` frames of AI-vs-AI self-play."""
+    env = PikaZoo(EnvConfig(auto_reset=True, is_player1_computer=True,
+                            is_player2_computer=True))
+    state, _ = env.reset_batch(1, batch, device=device)
+    actions = torch.zeros((batch, 2), dtype=torch.int32, device=device)
+    for _ in range(frames):
+        state, _ = env.step_batch(state, actions)
+    b = state.ball
+    return b.x, b.y, b.x_velocity, b.y_velocity
+
+
+def compare_landing(name: str, balls) -> int:
+    """Kernel vs plain on the same CUDA tensors; raises unless bit-equal.
+    Returns the largest absolute difference (0)."""
+    exp_k, cand_k = predict_cuda.landing_sims_batched(*balls)
+    exp_p, cand_p = landing_sims_any(*balls)
+    cand_p = cand_p.t()
+    torch.cuda.synchronize()
+    err = max(int((exp_k - exp_p).abs().max()), int((cand_k - cand_p).abs().max()))
+    if err or not (torch.equal(exp_k, exp_p) and torch.equal(cand_k, cand_p)):
+        raise AssertionError(f"landing kernel != plain on {name}: max |diff| {err}")
+    print(f"phase 3 kernel vs plain [{name}]: B={balls[0].numel()} bit-equal "
+          "(expected and 6 candidates)")
+    return err
+
+
+def rollout_checks(env: PikaZoo, batch: int, frames: int, actions_fn, card: str,
+                   label: str):
+    """Drive the main path; return (env-steps/s, landing kernel launches).
+    Raises unless rewards are zero-sum, some env scored, and every
+    observation dimension stayed in [OBS_LOW, OBS_HIGH], save the ball's y
+    velocity above its declared high (see LOOSE_OBS_HIGH)."""
+    device = torch.device("cuda")
+    low = torch.tensor(OBS_LOW, device=device)
+    high = torch.tensor(OBS_HIGH, device=device)
+    state, _ = env.reset_batch(0, batch, device=device)
+    bad_sum = torch.zeros((), dtype=torch.bool, device=device)
+    seen_min, seen_max = low.clone(), high.clone()
+    rounds = torch.zeros((), dtype=torch.int64, device=device)
+    torch.cuda.synchronize()
+    predict_cuda.landing_sims_batched.launches = 0
+    t0 = time.perf_counter()
+    for t in range(frames):
+        state, ts = env.step_batch(state, actions_fn(t))
+        bad_sum |= (ts.rewards.sum(-1) != 0).any()
+        seen_min = torch.minimum(seen_min, ts.obs.amin(dim=(0, 1)))
+        seen_max = torch.maximum(seen_max, ts.obs.amax(dim=(0, 1)))
+        rounds += ts.round_ended.sum()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = predict_cuda.landing_sims_batched.launches
+    if bool(bad_sum):
+        raise AssertionError(f"{label}: rewards are not zero-sum")
+    below = (seen_min < low).nonzero().flatten().tolist()
+    above = (seen_max > high).nonzero().flatten().tolist()
+    if below or set(above) - {LOOSE_OBS_HIGH}:
+        raise AssertionError(
+            f"{label}: observations left [OBS_LOW, OBS_HIGH]: dims {below} "
+            f"below (min {seen_min[below].tolist()}), dims {above} above "
+            f"(max {seen_max[above].tolist()})")
+    scored = int((state.scores.sum(-1) > 0).sum())
+    if scored == 0 or int(rounds) == 0:
+        raise AssertionError(f"{label}: no env scored in {frames} frames")
+    rate = batch * frames / seconds
+    print(f"{label}: B={batch} x {frames} frames in {seconds:.3f} s = "
+          f"{rate:.0f} env-steps/s (checks included), {int(rounds)} round ends, "
+          f"{scored} envs with points at the end, landing launches {launches}, "
+          f"obs in bounds (ball y velocity max {int(seen_max[LOOSE_OBS_HIGH])}, "
+          f"declared high {int(high[LOOSE_OBS_HIGH])}) [{card}]")
+    return rate, launches
+
+
+def compare_devices(cfg: EnvConfig, label: str, seed: int):
+    """The same actions on the card (kernel) and on the CPU (plain version):
+    every EnvState leaf and TimeStep field equal on every frame."""
+    env = PikaZoo(cfg)
+    actions = np.random.default_rng(seed).integers(
+        0, 18, (PARITY_FRAMES, PARITY_BATCH, 2)).astype(np.int32)
+    on_card = env.reset_batch(seed, PARITY_BATCH, device="cuda")
+    on_cpu = env.reset_batch(seed, PARITY_BATCH, device="cpu")
+    launches = predict_cuda.landing_sims_batched.launches
+    for t in range(-1, PARITY_FRAMES):
+        if t >= 0:
+            a = torch.from_numpy(actions[t])
+            on_card = env.step_batch(on_card[0], a.cuda())
+            on_cpu = env.step_batch(on_cpu[0], a)
+        for i, (g, c) in enumerate(zip(leaves(on_card), leaves(on_cpu))):
+            if not torch.equal(g.cpu(), c):
+                raise AssertionError(f"{label}: card != CPU at frame {t}, leaf {i}")
+    launched = predict_cuda.landing_sims_batched.launches - launches
+    if launched != PARITY_FRAMES:
+        raise AssertionError(f"{label}: {launched} kernel launches for "
+                             f"{PARITY_FRAMES} frames")
+    print(f"phase 6 card vs CPU [{label}]: B={PARITY_BATCH} x {PARITY_FRAMES} frames, "
+          "every EnvState leaf and TimeStep field equal on every frame")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
+              file=sys.stderr)
+        return 1
+    device = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+
+    # Phase 1: device.
+    card = card_line()
+    print(card)
+    print(f"phase 1 device: {kind}, torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+
+    # Phase 2: build every kernel of the path from the checkout's sources.
+    t0 = time.perf_counter()
+    lib = predict_cuda._library()
+    print(f"phase 2 build: {time.perf_counter() - t0:.2f} s -> {lib._name}")
+
+    # Phase 3: kernel vs plain version, on the card, bit-exact.
+    err = compare_landing("random states", random_ball_states(AI_BATCH, 0, device))
+    err = max(err, compare_landing(
+        "net-trap cases", tuple(torch.tensor(c, device=device)
+                                for c in NET_TRAP_CASES.T.copy())))
+    live = harvest_ball_states(device, AI_BATCH, HARVEST_FRAME)
+    err = max(err, compare_landing(f"AI self-play frame {HARVEST_FRAME}", live))
+    timed = {}
+    for name, balls in (("random states", random_ball_states(AI_BATCH, 1, device)),
+                        (f"AI self-play frame {HARVEST_FRAME}", live)):
+        kernel = lambda: predict_cuda.landing_sims_batched(*balls)
+        plain = lambda: landing_sims_any(*balls)
+        kernel(), plain()  # warm up
+        # Interleaved: plain, kernel, kernel, plain.
+        p1, k1, k2, p2 = (cuda_ms(plain, 3), cuda_ms(kernel, 50),
+                          cuda_ms(kernel, 50), cuda_ms(plain, 3))
+        timed[name] = (min(k1, k2), min(p1, p2))
+        print(f"phase 3 time [{name}] B={AI_BATCH}: kernel {k1:.4f} / {k2:.4f} ms, "
+              f"plain {p1:.3f} / {p2:.3f} ms [{card}]")
+
+    # Phase 4: main path, rule-AI self-play; every frame launches the kernel.
+    ai_env = PikaZoo(EnvConfig(auto_reset=True, is_player1_computer=True,
+                               is_player2_computer=True))
+    zeros = torch.zeros((AI_BATCH, 2), dtype=torch.int32, device=device)
+    _, launches = rollout_checks(ai_env, AI_BATCH, AI_FRAMES, lambda t: zeros,
+                                 card, "phase 4 rule-AI self-play")
+    if launches != AI_FRAMES:
+        raise AssertionError(f"landing kernel launched {launches} times in "
+                             f"{AI_FRAMES} AI frames")
+
+    # Phase 5: main path, random-action self-play; no computer seat, no launch.
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    random_actions = lambda t: torch.randint(
+        0, 18, (RANDOM_BATCH, 2), generator=gen, device=device, dtype=torch.int32)
+    _, launches_random = rollout_checks(PikaZoo(EnvConfig()), RANDOM_BATCH,
+                                        RANDOM_FRAMES, random_actions, card,
+                                        "phase 5 random-action self-play")
+    if launches_random != 0:
+        raise AssertionError(f"{launches_random} landing launches without a "
+                             "computer seat")
+
+    # Phase 6: card trajectory == CPU trajectory.
+    compare_devices(EnvConfig(winning_score=3, is_player1_computer=True,
+                              is_player2_computer=True), "AI vs AI", 7)
+    compare_devices(EnvConfig(winning_score=3, is_player1_computer=True),
+                    "AI vs random actions", 8)
+
+    ms, plain_ms = timed[f"AI self-play frame {HARVEST_FRAME}"]
+    print(json.dumps({"kernels": [{
+        "name": "landing_sims_batched",
+        "route": "cuda",
+        "source": "pikazoo_tpu_torch/csrc/landing.cu",
+        "replaces": "pikazoo_tpu/core/predict_pallas.py:72",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,279 @@
+"""The batched Pikachu Volleyball environment in PyTorch.
+
+Counterpart of ``pikazoo_tpu.envs.pika_volley``: the same reset and step
+semantics (lazy round reset, scoring by ``punch_effect_x < 216``, zero-sum
++-1 rewards on the scoring frame, persistent quirk fields, auto reset), on
+int32 tensors whose leading dimensions are the batch.  Where the JAX package
+writes a per-env function and ``vmap``s it, the port writes the batch
+dimension out: every function takes leaves of one batch shape ``S``
+(``(B,)`` from :meth:`PikaZoo.reset_batch`, ``()`` from :meth:`PikaZoo.reset`).
+
+Every leaf equals the JAX package's for the same key and actions; the tests
+hold them frame by frame.  With a computer seat, each frame runs the landing
+simulation once for the whole batch, on CUDA as one launch of the
+hand-written kernel (``core.predict_cuda``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Tuple
+
+import torch
+
+from pikazoo_tpu_torch.core import constants as C
+from pikazoo_tpu_torch.core.engine import physics_step
+from pikazoo_tpu_torch.core.input import decode_action
+from pikazoo_tpu_torch.core.rng import DrawState, draw, fold_key, key_data
+from pikazoo_tpu_torch.core.state import (I32, BallState, PlayerInput,
+                                          PlayerState, SoundEvents,
+                                          init_ball_construction,
+                                          init_player_construction,
+                                          round_init_ball, round_init_player)
+from pikazoo_tpu_torch.envs.observations import assemble_obs
+
+SERVE_MODES = ("winner", "alternate", "random")
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvConfig:
+    """Static environment configuration (reference constructor kwargs,
+    ``pikazoo_env.py:79-86``, plus the batched-mode ``auto_reset``)."""
+
+    winning_score: int = 15
+    serve: str = "winner"
+    is_player1_computer: bool = False
+    is_player2_computer: bool = False
+    auto_reset: bool = True
+
+    def __post_init__(self):
+        if self.serve not in SERVE_MODES:
+            raise ValueError(f"serve must be one of {SERVE_MODES}")
+
+
+class EnvState(NamedTuple):
+    p1: PlayerState
+    p2: PlayerState
+    ball: BallState
+    power_hit_key_down_prev: torch.Tensor  # S + (2,) int32 input latches
+    scores: torch.Tensor  # S + (2,) int32
+    is_player2_serve: torch.Tensor
+    round_ended: torch.Tensor
+    game_ended: torch.Tensor
+    step_count: torch.Tensor
+    rng_key: torch.Tensor  # S + (2,) int32 bits of the threefry stream key
+    draw_counter: torch.Tensor
+
+
+class FrameResult(NamedTuple):
+    """Output of :func:`env_frame`."""
+
+    p1: PlayerState
+    p2: PlayerState
+    ball: BallState
+    score1: torch.Tensor
+    score2: torch.Tensor
+    is_player2_serve: torch.Tensor
+    round_ended: torch.Tensor
+    game_ended: torch.Tensor
+    draw_counter: torch.Tensor
+    touched: torch.Tensor
+    reward_p1: torch.Tensor
+    sounds: SoundEvents
+
+
+class TimeStep(NamedTuple):
+    obs: torch.Tensor  # S + (2, 35) int32, row 0 = player 1's view
+    rewards: torch.Tensor  # S + (2,) int32, zero-sum
+    terminated: torch.Tensor  # 0/1
+    round_ended: torch.Tensor  # 0/1
+    scores: torch.Tensor  # S + (2,) int32
+    touched_ground: torch.Tensor  # 0/1
+    sounds: SoundEvents
+
+
+def env_frame(cfg: EnvConfig, ds: DrawState, p1: PlayerState,
+              p2: PlayerState, ball: BallState, score1, score2,
+              is_player2_serve, round_ended, game_ended,
+              inp1: PlayerInput, inp2: PlayerInput) -> FrameResult:
+    """One environment frame: lazy round / auto game reset with its draw
+    consumption (``pikazoo_env.py:176-180``), serve selection
+    (``:242-248``), physics, scoring (``:190-210``) and the zero-sum reward.
+    Inputs must already be decoded."""
+    where = torch.where
+    game_reset = (game_ended == 1) if cfg.auto_reset \
+        else torch.zeros_like(game_ended, dtype=torch.bool)
+    round_reset = (round_ended == 1) & (game_ended == 0)
+    do_init = round_reset | game_reset
+
+    score1 = where(game_reset, 0, score1)
+    score2 = where(game_reset, 0, score2)
+    is_player2_serve = where(game_reset, 0, is_player2_serve)
+    game_ended = where(game_reset, 0, game_ended)
+    # With auto_reset=False a terminated lane keeps round_ended=1; this mask
+    # keeps it from re-emitting the terminal reward on every further step.
+    game_ended_at_entry = game_ended
+    clear = lambda p: p._replace(
+        is_winner=where(game_reset, 0, p.is_winner),
+        game_ended=where(game_reset, 0, p.game_ended))
+    p1, p2 = clear(p1), clear(p2)
+
+    b1, ds = draw(ds, do_init, 5)
+    b2, ds = draw(ds, do_init, 5)
+    if cfg.serve == "winner":
+        server = is_player2_serve
+    elif cfg.serve == "alternate":
+        server = ((score1 + score2) % 2 == 1).to(I32)
+    else:
+        sv, ds = draw(ds, do_init, 2)
+        server = (sv == 0).to(I32)
+    p1 = round_init_player(p1, do_init, b1, is_player2=False)
+    p2 = round_init_player(p2, do_init, b2, is_player2=True)
+    ball = round_init_ball(ball, do_init, server)
+    round_ended = where(do_init, 0, round_ended)
+
+    p1, p2, ball, touched, ds, sounds = physics_step(
+        p1, p2, ball, inp1, inp2, ds,
+        cfg.is_player1_computer, cfg.is_player2_computer)
+
+    score_event = (touched == 1) & (round_ended == 0) & (game_ended == 0)
+    p2_scored = ball.punch_effect_x < C.GROUND_HALF_WIDTH
+    score1 = score1 + (score_event & ~p2_scored).to(I32)
+    score2 = score2 + (score_event & p2_scored).to(I32)
+    is_player2_serve = where(score_event, p2_scored.to(I32), is_player2_serve)
+    p1_won = score_event & (score1 >= cfg.winning_score) & ~p2_scored
+    p2_won = score_event & (score2 >= cfg.winning_score) & p2_scored
+    game_over = p1_won | p2_won
+    game_ended = where(game_over, 1, game_ended)
+    p1 = p1._replace(
+        is_winner=where(game_over, p1_won.to(I32), p1.is_winner),
+        game_ended=where(game_over, 1, p1.game_ended))
+    p2 = p2._replace(
+        is_winner=where(game_over, p2_won.to(I32), p2.is_winner),
+        game_ended=where(game_over, 1, p2.game_ended))
+    round_ended = where(score_event, 1, round_ended)
+
+    reward_p1 = where((round_ended == 1) & (game_ended_at_entry == 0),
+                      where(is_player2_serve == 1, -1, 1).to(I32), 0)
+    return FrameResult(p1, p2, ball, score1, score2, is_player2_serve,
+                       round_ended, game_ended, ds.counter, touched,
+                       reward_p1, sounds)
+
+
+class PikaZoo:
+    """Two-agent Pikachu Volleyball over a batch of environments.
+
+    >>> env = PikaZoo(EnvConfig(is_player1_computer=True, is_player2_computer=True))
+    >>> state, ts = env.reset_batch(0, 4096, device="cuda")
+    >>> state, ts = env.step_batch(state, torch.zeros((4096, 2), dtype=torch.int32,
+    ...                                                device="cuda"))
+    """
+
+    def __init__(self, config: EnvConfig = EnvConfig()):
+        self.config = config
+
+    def _reset_from_keys(self, keys: torch.Tensor) -> Tuple[EnvState, TimeStep]:
+        """Start new games from per-env key bits ``S + (2,)``; leaves get the
+        batch shape S."""
+        shape, device = keys.shape[:-1], keys.device
+        zeros = lambda s=(): torch.zeros(shape + s, dtype=I32, device=device)
+        ds = DrawState(key=keys, counter=zeros())
+        true = torch.ones(shape, dtype=torch.bool, device=device)
+        b1, ds = draw(ds, true, 5)
+        b2, ds = draw(ds, true, 5)
+        # Serve at reset (pikazoo_env.py:149-164): winner/alternate both give
+        # player 1 after the scores were zeroed; random draws after boldness.
+        if self.config.serve == "random":
+            sv, ds = draw(ds, true, 2)
+            server = (sv == 0).to(I32)
+        else:
+            server = zeros()
+        p1 = round_init_player(init_player_construction(False, shape, device),
+                               true, b1, is_player2=False)
+        p2 = round_init_player(init_player_construction(True, shape, device),
+                               true, b2, is_player2=True)
+        ball = round_init_ball(init_ball_construction(shape, device), true,
+                               server)
+        latch = zeros((2,))
+        state = EnvState(
+            p1=p1, p2=p2, ball=ball,
+            power_hit_key_down_prev=latch,
+            scores=zeros((2,)),
+            is_player2_serve=zeros(),
+            round_ended=zeros(),
+            game_ended=zeros(),
+            step_count=zeros(),
+            rng_key=keys.to(I32),
+            draw_counter=ds.counter,
+        )
+        ts = TimeStep(
+            obs=assemble_obs(p1, p2, ball, latch),
+            rewards=zeros((2,)),
+            terminated=zeros(),
+            round_ended=zeros(),
+            scores=zeros((2,)),
+            touched_ground=zeros(),
+            sounds=SoundEvents.none(shape, device),
+        )
+        return state, ts
+
+    def reset(self, key, device="cpu") -> Tuple[EnvState, TimeStep]:
+        """Start one game (0-d leaves) from an int seed or 2-word key data,
+        used directly as the env's stream key (like the JAX ``reset``)."""
+        return self._reset_from_keys(key_data(key, device))
+
+    def reset_batch(self, key, batch_size: int, device="cpu"
+                    ) -> Tuple[EnvState, TimeStep]:
+        """Start ``batch_size`` independent games on ``device``.  Env i's key
+        is ``fold_key(key, i)``, as in the JAX package, so both start from
+        identical states.  ``key`` is an int seed (key data ``[0, seed]``, as
+        ``jax.random.key(seed)``) or 2-word key data."""
+        base = key_data(key, device)
+        index = torch.arange(batch_size, dtype=torch.int64, device=base.device)
+        return self._reset_from_keys(fold_key(base, index))
+
+    def step(self, state: EnvState, actions: torch.Tensor
+             ) -> Tuple[EnvState, TimeStep]:
+        """Advance every env one frame.  ``actions`` is ``S + (2,)`` int
+        (one per seat, in [0, 18); out-of-range actions clamp as in JAX), on
+        the state's device."""
+        if actions.device != state.scores.device:
+            raise ValueError(f"actions on {actions.device}, state on "
+                             f"{state.scores.device}")
+        ds = DrawState(key=state.rng_key, counter=state.draw_counter)
+        prev = state.power_hit_key_down_prev
+        inp1, latch1 = decode_action(actions[..., 0], prev[..., 0])
+        inp2, latch2 = decode_action(actions[..., 1], prev[..., 1])
+        latch = torch.stack([latch1, latch2], dim=-1)
+
+        fr = env_frame(self.config, ds, state.p1, state.p2, state.ball,
+                       state.scores[..., 0], state.scores[..., 1],
+                       state.is_player2_serve, state.round_ended,
+                       state.game_ended, inp1, inp2)
+
+        scores = torch.stack([fr.score1, fr.score2], dim=-1)
+        new_state = EnvState(
+            p1=fr.p1, p2=fr.p2, ball=fr.ball,
+            power_hit_key_down_prev=latch,
+            scores=scores,
+            is_player2_serve=fr.is_player2_serve,
+            round_ended=fr.round_ended,
+            game_ended=fr.game_ended,
+            step_count=state.step_count + 1,
+            rng_key=state.rng_key,
+            draw_counter=fr.draw_counter,
+        )
+        ts = TimeStep(
+            obs=assemble_obs(fr.p1, fr.p2, fr.ball, latch),
+            rewards=torch.stack([fr.reward_p1, -fr.reward_p1], dim=-1),
+            terminated=fr.game_ended,
+            round_ended=fr.round_ended,
+            scores=scores,
+            touched_ground=fr.touched,
+            sounds=fr.sounds,
+        )
+        return new_state, ts
+
+    # ``step`` already takes any batch shape; ``step_batch`` is the name the
+    # JAX package gives its vmapped form, for ``(B, 2)`` actions.
+    step_batch = step

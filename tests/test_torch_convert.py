@@ -1,0 +1,76 @@
+"""Env state carried across between the JAX package and the port: the round
+trip is exact, and a carried-across state steps exactly as in JAX."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pikazoo_tpu.envs import EnvConfig as JaxConfig
+from pikazoo_tpu.envs import PikaZoo as JaxZoo
+from pikazoo_tpu_torch import EnvConfig, PikaZoo
+from pikazoo_tpu_torch.convert import env_state_from_numpy, env_state_to_numpy
+from torch_helpers import assert_same
+
+REPO = Path(__file__).resolve().parents[1]
+B = 32
+
+
+def test_round_trip_is_exact():
+    """A JAX state taken mid-game (every field away from its reset value,
+    keys with words >= 2^31) survives numpy -> torch -> numpy."""
+    env = JaxZoo(JaxConfig(serve="random"))
+    state, _ = env.reset_batch(jax.random.key(5), B)
+    step = jax.jit(env.step_batch)
+    rng = np.random.default_rng(0)
+    for _ in range(40):
+        state, _ = step(state, jnp.asarray(rng.integers(0, 18, (B, 2)), jnp.int32))
+    want = jax.device_get(state)
+    assert (np.asarray(want.rng_key) >= 2 ** 31).any()
+    carried = env_state_from_numpy(want)
+    assert {t.dtype for t in carried.p1 + carried.p2 + carried.ball + carried[3:]} \
+        == {torch.int32}
+    assert_same(want, env_state_to_numpy(carried))
+
+
+def test_rejects_other_leaf_types():
+    env = JaxZoo(JaxConfig())
+    state = jax.device_get(env.reset_batch(jax.random.key(0), 2)[0])
+    with pytest.raises(TypeError):
+        env_state_from_numpy(state._replace(step_count=np.zeros(2, np.float32)))
+
+
+@pytest.mark.parametrize("computer", [False, True])
+def test_carried_state_steps_like_jax(computer):
+    kw = dict(winning_score=2, serve="alternate", is_player1_computer=computer,
+              is_player2_computer=computer)
+    jax_env, env = JaxZoo(JaxConfig(**kw)), PikaZoo(EnvConfig(**kw))
+    jax_state, _ = jax_env.reset_batch(jax.random.key(9), B)
+    state = env_state_from_numpy(jax.device_get(jax_state))
+    step = jax.jit(jax_env.step_batch)
+    rng = np.random.default_rng(1)
+    for _ in range(60):
+        actions = rng.integers(0, 18, (B, 2)).astype(np.int32)
+        jax_state, jax_ts = step(jax_state, jnp.asarray(actions))
+        state, ts = env.step_batch(state, torch.from_numpy(actions))
+        assert_same(jax.device_get((jax_state, jax_ts)),
+                    (env_state_to_numpy(state), ts))
+
+
+def test_port_imports_no_jax():
+    """The machine with the card has no JAX: neither the package nor
+    chip_smoke.py may import it."""
+    code = ("import sys; import pikazoo_tpu_torch, pikazoo_tpu_torch.convert, "
+            "pikazoo_tpu_torch.core.predict_cuda, chip_smoke; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'pikazoo_tpu')); "
+            "assert not bad, bad")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
