@@ -6,11 +6,12 @@
 Run from the root of a checkout on a machine with one CUDA card, ``nvcc``
 and ``nvidia-smi``.  It builds every kernel of the port from the sources in
 the checkout, holds each against its plain PyTorch version on the card,
-drives the port's main path (``PikaZoo.reset_batch`` / ``step_batch``) with
-rule-AI and random-action seats, and compares a card trajectory with a CPU
-trajectory leaf by leaf.  Every phase prints one line; any failure raises and
-the script exits non-zero.  The last line is a JSON object naming the device.
-Without a CUDA device it exits with status 1 before printing any result.
+drives the port's two paths with rule-AI and random-action seats (the eager
+``PikaZoo.reset_batch`` / ``step_batch``, and ``fused_rollout``, many frames
+per launch), and compares a card trajectory with a CPU trajectory leaf by
+leaf.  Every phase prints one line; any failure raises and the script exits
+non-zero.  The last line is a JSON object naming the device.  Without a
+CUDA device it exits with status 1 before printing any result.
 """
 
 from __future__ import annotations
@@ -19,19 +20,28 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from pikazoo_tpu_torch import EnvConfig, PikaZoo
-from pikazoo_tpu_torch.core import predict_cuda
+from pikazoo_tpu_torch import EnvConfig, PikaZoo, fused_rollout
+from pikazoo_tpu_torch.core import fused_step, predict_cuda
 from pikazoo_tpu_torch.core.predict import landing_sims_any
 from pikazoo_tpu_torch.envs import OBS_HIGH, OBS_LOW
+from pikazoo_tpu_torch.envs.pika_volley import EnvState
 
 AI_BATCH, AI_FRAMES = 65536, 500          # rule-AI self-play (both seats)
 RANDOM_BATCH, RANDOM_FRAMES = 262144, 200  # random-action self-play
 PARITY_BATCH, PARITY_FRAMES = 4096, 300    # card vs CPU, leaf by leaf
 HARVEST_FRAME = 300
+# The fused path: calls of FUSED_FRAMES frames each.
+FUSED_FRAMES = 100
+FUSED_AI_CALLS = 5        # B=AI_BATCH x 500 frames
+FUSED_RANDOM_CALLS = 2    # B=RANDOM_BATCH x 200 frames
+MODE_BATCH, MODE_FRAMES = 4096, 200
+AI_CONFIG = EnvConfig(auto_reset=True, is_player1_computer=True,
+                      is_player2_computer=True)
 # Observation dim 33, the ball's y velocity, can pass its declared OBS_HIGH
 # (124): a smash doubles |y_velocity|, so a ball smashed again on its way
 # down exceeds it, in the JAX package as in the port
@@ -125,7 +135,7 @@ def rollout_checks(env: PikaZoo, batch: int, frames: int, actions_fn, card: str,
     seen_min, seen_max = low.clone(), high.clone()
     rounds = torch.zeros((), dtype=torch.int64, device=device)
     torch.cuda.synchronize()
-    predict_cuda.landing_sims_batched.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     for t in range(frames):
         state, ts = env.step_batch(state, actions_fn(t))
@@ -136,6 +146,8 @@ def rollout_checks(env: PikaZoo, batch: int, frames: int, actions_fn, card: str,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = predict_cuda.landing_sims_batched.launches
+    if fused_rollout.launches:
+        raise AssertionError(f"{label}: the eager step launched the fused kernel")
     if bool(bad_sum):
         raise AssertionError(f"{label}: rewards are not zero-sum")
     below = (seen_min < low).nonzero().flatten().tolist()
@@ -155,6 +167,100 @@ def rollout_checks(env: PikaZoo, batch: int, frames: int, actions_fn, card: str,
           f"obs in bounds (ball y velocity max {int(seen_max[LOOSE_OBS_HIGH])}, "
           f"declared high {int(high[LOOSE_OBS_HIGH])}) [{card}]")
     return rate, launches
+
+
+def zero_counts():
+    predict_cuda.landing_sims_batched.launches = 0
+    fused_rollout.launches = 0
+
+
+def build_all(card: str):
+    """Build both libraries at once, one nvcc each; print each one's time."""
+    def timed_build(build):
+        t0 = time.perf_counter()
+        lib = build()
+        return lib._name, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = [pool.submit(timed_build, b) for b in
+                  (predict_cuda._library, fused_step._library)]
+        for future in builds:
+            name, seconds = future.result()
+            print(f"phase 2 build: {seconds:.2f} s -> {name} [{card}]")
+
+
+def rows_differ(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest absolute difference of two packed states; 0 when bit-equal."""
+    return int((got.long() - want.long()).abs().max())
+
+
+def compare_fused(label: str, cfg: EnvConfig, batch: int, frames: int,
+                  seed: int):
+    """Kernel vs plain version from a fresh reset on the card: all NFIELDS
+    rows bit-equal.  Returns (max |diff| (0), packed start, kernel result)."""
+    state, _ = PikaZoo(cfg).reset_batch(seed, batch, device="cuda")
+    packed = fused_step.pack_state(state, seed + 1)
+    got = fused_step.rollout_packed(packed.clone(), cfg, frames)
+    want = fused_step.rollout_packed_plain(packed, cfg, frames)
+    torch.cuda.synchronize()
+    err = rows_differ(got, want)
+    if err:
+        rows = (got != want).any(dim=1).nonzero().flatten().tolist()
+        raise AssertionError(f"fused kernel != plain [{label}]: rows {rows}, "
+                             f"max |diff| {err}")
+    after = fused_step.unpack_state(got)
+    points = int(after.scores.sum())
+    print(f"phase 7 kernel vs plain [{label}]: B={batch} x {frames} frames, "
+          f"all {fused_step.NFIELDS} rows bit-equal, {points} points scored, "
+          f"{int(after.game_ended.sum())} envs at game end")
+    return err, packed, got
+
+
+def fused_path(label: str, cfg: EnvConfig, batch: int, calls: int,
+               card: str) -> EnvState:
+    """Drive ``fused_rollout`` ``calls`` times from a reset; check the proof
+    of work (every env's step_count advanced by exactly the frames run) and
+    that envs scored.  Returns the final state."""
+    state, _ = PikaZoo(cfg).reset_batch(0, batch, device="cuda")
+    base = state.step_count.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        state = fused_rollout(state, 1, cfg, FUSED_FRAMES)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    frames = calls * FUSED_FRAMES
+    advanced = state.step_count - base
+    if not bool((advanced == frames).all()):
+        raise AssertionError(f"{label}: step_count advanced by "
+                             f"{advanced.min()}..{advanced.max()}, not {frames}")
+    scores = state.scores
+    if int(scores.min()) < 0 or int(scores.max()) > cfg.winning_score:
+        raise AssertionError(f"{label}: scores outside [0, {cfg.winning_score}]")
+    scored = int((scores.sum(-1) > 0).sum())
+    if scored == 0:
+        raise AssertionError(f"{label}: no env scored in {frames} frames")
+    print(f"phase 8 {label}: B={batch} x {frames} frames in {calls} calls, "
+          f"{seconds:.4f} s = {batch * frames / seconds:.0f} env-steps/s, every "
+          f"step_count advanced by {frames}, {scored} envs with points [{card}]")
+    return state
+
+
+def time_fused(label: str, cfg: EnvConfig, state: EnvState, card: str):
+    """CUDA-event ms of one FUSED_FRAMES-frame call from a live state, kernel
+    and plain, interleaved plain, kernel, kernel, plain.  The kernel runs in
+    place on its own buffer, so its calls continue one another."""
+    live = fused_step.pack_state(state, 1)
+    buf = live.clone()
+    kernel = lambda: fused_step.rollout_packed(buf, cfg, FUSED_FRAMES)
+    plain = lambda: fused_step.rollout_packed_plain(live, cfg, FUSED_FRAMES)
+    p1, k1, k2, p2 = (cuda_ms(plain, 1), cuda_ms(kernel, 5),
+                      cuda_ms(kernel, 5), cuda_ms(plain, 1))
+    batch = live.shape[1]
+    print(f"phase 8 time [{label}] B={batch} x {FUSED_FRAMES} frames: kernel "
+          f"{k1:.4f} / {k2:.4f} ms ({batch * FUSED_FRAMES / min(k1, k2) * 1e3:.0f} "
+          f"env-steps/s), plain {p1:.1f} / {p2:.1f} ms [{card}]")
+    return min(k1, k2), min(p1, p2)
 
 
 def compare_devices(cfg: EnvConfig, label: str, seed: int):
@@ -196,10 +302,8 @@ def main() -> int:
     print(f"phase 1 device: {kind}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
-    # Phase 2: build every kernel of the path from the checkout's sources.
-    t0 = time.perf_counter()
-    lib = predict_cuda._library()
-    print(f"phase 2 build: {time.perf_counter() - t0:.2f} s -> {lib._name}")
+    # Phase 2: build every kernel from the checkout's sources.
+    build_all(card)
 
     # Phase 3: kernel vs plain version, on the card, bit-exact.
     err = compare_landing("random states", random_ball_states(AI_BATCH, 0, device))
@@ -249,6 +353,50 @@ def main() -> int:
     compare_devices(EnvConfig(winning_score=3, is_player1_computer=True),
                     "AI vs random actions", 8)
 
+    # Phase 7: the fused kernel vs its plain version on the card, all rows.
+    fused_err, start, ai_100 = compare_fused(
+        "AI self-play", AI_CONFIG, AI_BATCH, FUSED_FRAMES, 11)
+    for label, cfg, batch, frames in (
+            ("random actions", EnvConfig(), RANDOM_BATCH, FUSED_FRAMES),
+            ("serve random", EnvConfig(winning_score=2, serve="random"),
+             MODE_BATCH, MODE_FRAMES),
+            ("serve alternate", EnvConfig(winning_score=2, serve="alternate"),
+             MODE_BATCH, MODE_FRAMES),
+            # AI rallies are long: these two reach round and game ends.
+            ("AI vs random actions, serve random",
+             EnvConfig(winning_score=2, serve="random", is_player1_computer=True),
+             MODE_BATCH, MODE_FRAMES),
+            ("AI self-play to 2", EnvConfig(winning_score=2, is_player1_computer=True,
+                                            is_player2_computer=True),
+             MODE_BATCH, 2 * MODE_FRAMES)):
+        fused_err = max(fused_err, compare_fused(label, cfg, batch, frames, 12)[0])
+    half = FUSED_FRAMES // 2
+    twice = fused_step.rollout_packed(
+        fused_step.rollout_packed(start.clone(), AI_CONFIG, half), AI_CONFIG, half)
+    torch.cuda.synchronize()
+    if rows_differ(twice, ai_100):
+        raise AssertionError(f"fused kernel: 2 x {half} frames != {FUSED_FRAMES}")
+    print(f"phase 7 continuation [AI self-play]: 2 x {half} frames == "
+          f"{FUSED_FRAMES} frames on all {fused_step.NFIELDS} rows")
+
+    # Phase 8: the fused path at full width; one launch per call, no landing
+    # kernel launch.
+    zero_counts()
+    ai_state = fused_path("fused AI self-play", AI_CONFIG, AI_BATCH,
+                          FUSED_AI_CALLS, card)
+    random_state = fused_path("fused random actions", EnvConfig(), RANDOM_BATCH,
+                              FUSED_RANDOM_CALLS, card)
+    fused_launches = fused_rollout.launches
+    landing_launches = predict_cuda.landing_sims_batched.launches
+    calls = FUSED_AI_CALLS + FUSED_RANDOM_CALLS
+    if fused_launches != calls or landing_launches != 0:
+        raise AssertionError(f"fused path: {fused_launches} fused launches for "
+                             f"{calls} calls, {landing_launches} landing launches")
+    print(f"phase 8 launches: fused_rollout {fused_launches} in {calls} calls, "
+          f"landing_sims_batched {landing_launches}")
+    fused_ms, fused_plain_ms = time_fused("AI self-play", AI_CONFIG, ai_state, card)
+    time_fused("random actions", EnvConfig(), random_state, card)
+
     ms, plain_ms = timed[f"AI self-play frame {HARVEST_FRAME}"]
     print(json.dumps({"kernels": [{
         "name": "landing_sims_batched",
@@ -259,6 +407,15 @@ def main() -> int:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "fused_rollout",
+        "route": "cuda",
+        "source": "pikazoo_tpu_torch/csrc/fused_step.cu",
+        "replaces": "pikazoo_tpu/core/fused_step.py:200",
+        "launches": fused_launches,
+        "max_abs_err": fused_err,
+        "ms": fused_ms,
+        "plain_ms": fused_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

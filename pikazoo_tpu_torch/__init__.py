@@ -4,16 +4,19 @@ The batched, bit-exact Pikachu Volleyball environment on int32 tensors, with
 human or rule-AI seats.  It imports ``torch`` and never ``jax``; module names
 mirror ``pikazoo_tpu`` so each counterpart is easy to find.  On a CUDA device
 the rule AI's landing simulation runs as a hand-written Hopper kernel
-(``csrc/landing.cu``, built with ``nvcc`` at first use into
-``build/kernels/``); on the CPU it runs as plain PyTorch.
+(``csrc/landing.cu``), and ``fused_rollout`` advances a batch many frames
+in one launch of another (``csrc/fused_step.cu``); both are built with
+``nvcc`` at first use into ``build/kernels/``.  On the CPU they run as
+plain PyTorch.
 
 Layers (bottom up):
   core/      physics of one frame: ball, players, collisions, landing
-             simulation, rule AI, draw-slot RNG
+             simulation, rule AI, draw-slot RNG; the fused rollout
   envs/      the environment: ``PikaZoo.reset_batch`` / ``step_batch``
   convert    EnvState to and from the JAX package's numpy leaves
 """
 
+from pikazoo_tpu_torch.core.fused_step import fused_rollout
 from pikazoo_tpu_torch.envs import EnvConfig, PikaZoo, TimeStep
 
-__all__ = ["EnvConfig", "PikaZoo", "TimeStep"]
+__all__ = ["EnvConfig", "PikaZoo", "TimeStep", "fused_rollout"]

@@ -3,9 +3,9 @@
 Each library is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, loaded with ``ctypes``.  The build happens
 at first use, into ``build/kernels/`` at the root of the checkout, named by
-a hash of its sources and flags, so a changed source is rebuilt and an
-unchanged one is reused.  A failed build raises with ``nvcc``'s output;
-there is no fallback.
+a hash of its flags, its sources and every header under ``csrc/``, so a
+changed source or header is rebuilt and an unchanged one is reused.  A
+failed build raises with ``nvcc``'s output; there is no fallback.
 """
 
 from __future__ import annotations
@@ -46,10 +46,17 @@ def find_nvcc() -> str:
         "the CUDA kernels of pikazoo_tpu_torch need the CUDA toolkit")
 
 
+HEADER_SUFFIXES = (".cuh", ".h")
+
+
 def library_path(name: str, sources: tuple[str, ...]) -> Path:
-    """Where the library built from ``sources`` (names under ``csrc/``) lives."""
+    """Where the library built from ``sources`` (names under ``csrc/``) lives.
+    The name hashes the headers under ``csrc/`` too, since a source may
+    include any of them."""
+    headers = sorted(p.name for p in CSRC_DIR.iterdir()
+                     if p.suffix in HEADER_SUFFIXES)
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         digest.update(src.encode())
         digest.update((CSRC_DIR / src).read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"

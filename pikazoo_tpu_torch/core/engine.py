@@ -49,14 +49,19 @@ def physics_step(
     ds: DrawState,
     is_player1_computer: bool,
     is_player2_computer: bool,
+    landing_fn=None,
 ) -> Tuple[PlayerState, PlayerState, BallState, torch.Tensor, DrawState,
            SoundEvents]:
-    """Advance the physics one frame for every env of the batch."""
+    """Advance the physics one frame for every env of the batch.
+
+    ``landing_fn`` (ball -> (expected, candidates ``(6,) + S``)) replaces
+    :func:`landing_sims`, the kernel wrapper, as in the JAX package; the
+    fused rollout's plain version passes the plain simulation."""
     ball, touched = ball_world_step(ball)
 
     candidate_landing = None
     if is_player1_computer or is_player2_computer:
-        expected_x, candidate_landing = landing_sims(ball)
+        expected_x, candidate_landing = (landing_fn or landing_sims)(ball)
         ball = ball._replace(expected_landing_point_x=expected_x)
 
     # Player 1 (left): optional AI decision, then movement.

@@ -32,41 +32,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "landing_sim.cuh"
+
 namespace {
 
-constexpr int32_t kBallRadius = 20;
-constexpr int32_t kGroundWidth = 432;
-constexpr int32_t kHalfWidth = 216;
-constexpr int32_t kNetPillarHalf = 25;
-constexpr int32_t kNetTopTop = 176;
-constexpr int32_t kNetTopBottom = 192;
-constexpr int32_t kBallGroundY = 252;
-constexpr int32_t kLoopLimit = 1000;
-
-__device__ __forceinline__ int32_t iabs(int32_t v) { return v < 0 ? -v : v; }
-
-// One landing loop (reference physics.py:655-685 / 850-870).  x is not
-// advanced on the finishing iteration, so the x it returns is the landing x.
-__device__ int32_t sim(int32_t x, int32_t y, int32_t vx, int32_t vy,
-                       bool full_rule) {
-  if (vx == 0) return x;
-  for (int32_t count = 1;; ++count) {
-    const int32_t fx = x + vx;
-    if (fx < kBallRadius || fx > kGroundWidth) vx = -vx;
-    if (y + vy < 0) vy = 1;
-    if (iabs(x - kHalfWidth) < kNetPillarHalf && y > kNetTopTop) {
-      if (!full_rule || y < kNetTopBottom) {
-        if (vy > 0) vy = -vy;
-      } else {
-        vx = (x < kHalfWidth) ? -iabs(vx) : iabs(vx);
-      }
-    }
-    y += vy;
-    if (y > kBallGroundY || count >= kLoopLimit) return x;
-    x += vx;
-    ++vy;
-  }
-}
+using pika::candidate_landing;
+using pika::sim;
 
 __global__ void landing_kernel(const int32_t* __restrict__ xs,
                                const int32_t* __restrict__ ys,
@@ -84,10 +55,7 @@ __global__ void landing_kernel(const int32_t* __restrict__ xs,
     return;
   }
   const int32_t k = lane - 1;
-  const int32_t speed = (k < 3 ? 2 : 1) * 10;
-  const int32_t vx = x < kHalfWidth ? speed : -speed;
-  const int32_t vy = iabs(vys[e]) * (k % 3 - 1) * 2;
-  cand[int64_t(k) * n + e] = sim(x, y, vx, vy, false);
+  cand[int64_t(k) * n + e] = candidate_landing(k, x, y, vys[e]);
 }
 
 }  // namespace

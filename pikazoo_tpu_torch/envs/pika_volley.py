@@ -95,11 +95,13 @@ class TimeStep(NamedTuple):
 def env_frame(cfg: EnvConfig, ds: DrawState, p1: PlayerState,
               p2: PlayerState, ball: BallState, score1, score2,
               is_player2_serve, round_ended, game_ended,
-              inp1: PlayerInput, inp2: PlayerInput) -> FrameResult:
+              inp1: PlayerInput, inp2: PlayerInput,
+              landing_fn=None) -> FrameResult:
     """One environment frame: lazy round / auto game reset with its draw
     consumption (``pikazoo_env.py:176-180``), serve selection
     (``:242-248``), physics, scoring (``:190-210``) and the zero-sum reward.
-    Inputs must already be decoded."""
+    Inputs must already be decoded.  ``landing_fn`` goes to
+    :func:`~pikazoo_tpu_torch.core.engine.physics_step`."""
     where = torch.where
     game_reset = (game_ended == 1) if cfg.auto_reset \
         else torch.zeros_like(game_ended, dtype=torch.bool)
@@ -134,7 +136,7 @@ def env_frame(cfg: EnvConfig, ds: DrawState, p1: PlayerState,
 
     p1, p2, ball, touched, ds, sounds = physics_step(
         p1, p2, ball, inp1, inp2, ds,
-        cfg.is_player1_computer, cfg.is_player2_computer)
+        cfg.is_player1_computer, cfg.is_player2_computer, landing_fn)
 
     score_event = (touched == 1) & (round_ended == 0) & (game_ended == 0)
     p2_scored = ball.punch_effect_x < C.GROUND_HALF_WIDTH
