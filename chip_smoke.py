@@ -6,11 +6,12 @@
 Run from the root of a checkout on a machine with one CUDA card, ``nvcc``
 and ``nvidia-smi``.  It builds every kernel of the port from the sources in
 the checkout, holds each against its plain PyTorch version on the card,
-drives the port's two paths with rule-AI and random-action seats (the eager
+drives the port's env paths with rule-AI and random-action seats (the eager
 ``PikaZoo.reset_batch`` / ``step_batch``, and ``fused_rollout``, many frames
-per launch), and compares a card trajectory with a CPU trajectory leaf by
-leaf.  Every phase prints one line; any failure raises and the script exits
-non-zero.  The last line is a JSON object naming the device.  Without a
+per launch), compares a card trajectory with a CPU trajectory leaf by leaf,
+and trains: the self-play PPO learner through ``make_ppo_trainer`` at full
+width, its minibatch gradients in the fused kernel K1.  Every phase prints
+at least one line; any failure raises and the script exits non-zero.  The last line is a JSON object naming the device.  Without a
 CUDA device it exits with status 1 before printing any result.
 """
 
@@ -30,6 +31,10 @@ from pikazoo_tpu_torch.core import fused_step, predict_cuda
 from pikazoo_tpu_torch.core.predict import landing_sims_any
 from pikazoo_tpu_torch.envs import OBS_HIGH, OBS_LOW
 from pikazoo_tpu_torch.envs.pika_volley import EnvState
+from pikazoo_tpu_torch.train import PPOConfig, make_ppo_trainer, ppo
+from pikazoo_tpu_torch.train import fused_update
+from pikazoo_tpu_torch.train.fused_update import fused_ppo_grads_fm
+from pikazoo_tpu_torch.train.networks import ActorCritic, apply_fm
 
 AI_BATCH, AI_FRAMES = 65536, 500          # rule-AI self-play (both seats)
 RANDOM_BATCH, RANDOM_FRAMES = 262144, 200  # random-action self-play
@@ -172,18 +177,19 @@ def rollout_checks(env: PikaZoo, batch: int, frames: int, actions_fn, card: str,
 def zero_counts():
     predict_cuda.landing_sims_batched.launches = 0
     fused_rollout.launches = 0
+    fused_ppo_grads_fm.launches = 0
 
 
 def build_all(card: str):
-    """Build both libraries at once, one nvcc each; print each one's time."""
+    """Build every library at once, one nvcc each; print each one's time."""
     def timed_build(build):
         t0 = time.perf_counter()
         lib = build()
         return lib._name, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         builds = [pool.submit(timed_build, b) for b in
-                  (predict_cuda._library, fused_step._library)]
+                  (predict_cuda._library, fused_step._library, fused_update._library)]
         for future in builds:
             name, seconds = future.result()
             print(f"phase 2 build: {seconds:.2f} s -> {name} [{card}]")
@@ -286,6 +292,172 @@ def compare_devices(cfg: EnvConfig, label: str, seed: int):
                              f"{PARITY_FRAMES} frames")
     print(f"phase 6 card vs CPU [{label}]: B={PARITY_BATCH} x {PARITY_FRAMES} frames, "
           "every EnvState leaf and TimeStep field equal on every frame")
+
+# K1 and the learner (phases 9-10).
+K1_KW = dict(num_actions=18, clip_eps=0.2, value_coef=0.5, entropy_coef=0.01)
+K1_FULL = (32, 131072)  # a full-width minibatch: 32 frames x 2B = 131072 columns
+# Kernel vs plain differ in summation order and so in rare bf16 roundings.
+LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-6
+GRAD_REL_L2, GRAD_COS = 1e-3, 0.99999
+LEARNER = PPOConfig(num_envs=65536, rollout_length=128, num_minibatches=4,
+                    update_epochs=4, hidden=(256, 256))
+LEARNER_UPDATES = 3
+# The artifacts/vs_ai_policy recipe (tests/test_trained_artifact.py:23-26).
+VS_AI = PPOConfig(num_envs=8192, rollout_length=128, num_minibatches=8,
+                  update_epochs=4, hidden=(256, 256), entropy_coef=0.01,
+                  learner_seats="p1", learning_rate=5e-4)
+
+
+def k1_inputs(frames: int, cols: int, activation: str, seed: int):
+    """A minibatch built as tests/test_fused_update.py:32-46 builds one, from
+    numpy: uniform bf16 observations, uniform actions, logp_old of the
+    network perturbed by 0.3 N(0, 1) so that both clip branches fire,
+    normalised N(0, 1) advantages, targets = value + N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    net = ActorCritic(18, (256, 256), activation,
+                      generator=torch.Generator().manual_seed(seed))
+    params = {k: v.detach().cuda() for k, v in net.params().items()}
+    card = lambda a: torch.from_numpy(a).cuda()
+    obs = card(rng.random((frames, 35, cols), dtype=np.float32)).to(torch.bfloat16)
+    action = card(rng.integers(0, 18, (frames, cols)).astype(np.int32))
+    logits, value = apply_fm(params, obs.permute(1, 0, 2).reshape(35, -1), activation)
+    logp = torch.log_softmax(logits, 0).gather(0, action.reshape(1, -1).long())
+    logp_old = logp.reshape(frames, cols) + 0.3 * card(
+        rng.standard_normal((frames, cols), dtype=np.float32))
+    adv = card(rng.standard_normal((frames, cols), dtype=np.float32))
+    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    value = value.reshape(frames, cols)
+    target = value + card(rng.standard_normal((frames, cols), dtype=np.float32))
+    return params, obs, action, logp_old, value, adv, target
+
+
+def compare_k1(label: str, args, activation: str, card: str, phase: int = 9):
+    """K1 vs its plain version on the same card tensors, within the stated
+    tolerances, and two launches bit-identical.  Returns the largest
+    absolute difference over the grads and losses."""
+    kw = dict(K1_KW, activation=activation)
+    grads, losses = fused_ppo_grads_fm(*args, **kw)
+    grads2, losses2 = fused_ppo_grads_fm(*args, **kw)
+    want, want_losses = fused_update.fused_ppo_grads_fm_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(losses, losses2)
+            and all(torch.equal(grads[k], grads2[k]) for k in grads)):
+        raise AssertionError(f"K1 [{label}]: two launches on the same inputs differ")
+    if not torch.allclose(losses, want_losses, rtol=LOSS_RTOL, atol=LOSS_ATOL):
+        raise AssertionError(f"K1 [{label}]: losses {losses.tolist()} vs plain "
+                             f"{want_losses.tolist()}")
+    worst_rel, worst_cos = 0.0, 1.0
+    err = float((losses - want_losses).abs().max())
+    for k, w in want.items():
+        g, w = grads[k].double().flatten(), w.double().flatten()
+        rel = float((g - w).norm() / w.norm())
+        cos = float(g @ w / (g.norm() * w.norm()))
+        if not (rel <= GRAD_REL_L2 and cos >= GRAD_COS):
+            raise AssertionError(f"K1 [{label}]: {k} relative L2 {rel:.3e}, cos {cos:.8f}")
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+        err = max(err, float((g - w).abs().max()))
+    frames, _, cols = args[1].shape
+    print(f"phase {phase} K1 vs plain [{label}] T={frames} N={cols} {activation}: losses "
+          f"{[round(x, 6) for x in losses.tolist()]}, worst grad leaf relative L2 "
+          f"{worst_rel:.3e} cos {worst_cos:.8f}, max |diff| {err:.3e}, two launches "
+          f"bit-identical [{card}]")
+    return err
+
+
+def time_k1(args, activation: str, card: str):
+    """CUDA-event ms of K1 and of its plain version, interleaved plain,
+    kernel, kernel, plain."""
+    kw = dict(K1_KW, activation=activation)
+    kernel = lambda: fused_ppo_grads_fm(*args, **kw)
+    plain = lambda: fused_update.fused_ppo_grads_fm_plain(*args, **kw)
+    p1, k1, k2, p2 = (cuda_ms(plain, 1), cuda_ms(kernel, 5), cuda_ms(kernel, 5),
+                      cuda_ms(plain, 1))
+    frames, _, cols = args[1].shape
+    print(f"phase 9 time K1 T={frames} N={cols}: kernel {k1:.3f} / {k2:.3f} ms, "
+          f"plain {p1:.3f} / {p2:.3f} ms [{card}]")
+    return min(k1, k2), min(p1, p2)
+
+
+def capture_first_minibatch():
+    """Wrap the trainer's K1 entry so that its first call's arguments are
+    kept (the first live minibatch); returns (store, restore)."""
+    store = []
+
+    def wrapper(*args, **kw):
+        if not store:
+            store.append((args, kw))
+        return fused_ppo_grads_fm(*args, **kw)
+
+    ppo.fused_ppo_grads_fm = wrapper
+    return store, lambda: setattr(ppo, "fused_ppo_grads_fm", fused_ppo_grads_fm)
+
+
+def train(env_config: EnvConfig, cfg: PPOConfig, updates: int, label: str, card: str):
+    """``updates`` train steps from ``init_fn(0)`` through the trainer's
+    entry points.  Raises unless K1 serves, every env advanced
+    ``updates * rollout_length`` frames, the metrics are finite and the
+    params moved.  Returns (runner, train_step, launches by kernel,
+    env-steps/s)."""
+    init_fn, train_step, _ = make_ppo_trainer(PikaZoo(env_config), cfg, device="cuda")
+    if train_step.provenance["fused_update"] != "fm":
+        raise AssertionError(f"{label}: update served by {train_step.provenance}")
+    runner = init_fn(0)
+    start = runner.env_state.step_count.clone()
+    params0 = runner.params
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(updates):
+        runner, m = train_step(runner)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"fused_ppo_grads_fm": fused_ppo_grads_fm.launches,
+                "landing_sims_batched": predict_cuda.landing_sims_batched.launches,
+                "fused_rollout": fused_rollout.launches}
+    frames = updates * cfg.rollout_length
+    advanced = runner.env_state.step_count - start
+    if not bool((advanced == frames).all()):
+        raise AssertionError(f"{label}: step_count advanced by {int(advanced.min())}.."
+                             f"{int(advanced.max())}, not {frames}")
+    values = torch.stack([torch.stack([x.float() for x in m[:7]]) for m in metrics])
+    if not bool(torch.isfinite(values).all()):
+        raise AssertionError(f"{label}: metrics not finite: {values.tolist()}")
+    moved = max(float((runner.params[k] - params0[k]).abs().max()) for k in params0)
+    if moved == 0:
+        raise AssertionError(f"{label}: the params did not move")
+    rate = updates * cfg.rollout_length * cfg.num_envs / seconds
+    last = dict(zip(metrics[-1]._fields[:7], values[-1].tolist()))
+    print(f"phase 10 {label}: B={cfg.num_envs} x {frames} frames in {updates} "
+          f"update(s), {seconds:.3f} s = {rate:.0f} env-steps/s (train-step wall), "
+          f"every step_count +{frames}, params moved (max |change| {moved:.3e}), "
+          f"launches {launches}, last update {json.dumps(last)} [{card}]")
+    return runner, train_step, launches, rate
+
+
+def time_learner_phases(runner, train_step, cfg: PPOConfig, card: str):
+    """CUDA-event ms of one more update, phase by phase, driven through the
+    trainer's phase attributes: rollout, GAE, update."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    uniforms = torch.rand((cfg.rollout_length, 1, 2 * cfg.num_envs),
+                          generator=runner.key, device="cuda")
+    events[0].record()
+    (env_state, last_norm), traj = train_step.rollout_fn(
+        runner.params, runner.env_state, runner.last_obs, uniforms)
+    events[1].record()
+    _, last_value = apply_fm(runner.params, last_norm, cfg.activation)
+    adv, targets = ppo.gae_associative(traj.value, traj.reward, traj.done,
+                                       last_value, cfg.gamma, cfg.gae_lambda)
+    events[2].record()
+    train_step.update_fn(runner.params, runner.opt_state, traj, adv, targets)
+    events[3].record()
+    events[3].synchronize()
+    rollout, gae, update = (events[i].elapsed_time(events[i + 1]) for i in range(3))
+    total = rollout + gae + update
+    print(f"phase 10 update phases (CUDA events): rollout {rollout:.1f} ms, GAE "
+          f"{gae:.2f} ms, update {update:.1f} ms ({cfg.update_epochs * cfg.num_minibatches}"
+          f" K1 calls); rollout share {rollout / total:.1%} [{card}]")
 
 
 def main() -> int:
@@ -397,6 +569,42 @@ def main() -> int:
     fused_ms, fused_plain_ms = time_fused("AI self-play", AI_CONFIG, ai_state, card)
     time_fused("random actions", EnvConfig(), random_state, card)
 
+    # Phase 9: K1 vs its plain version on the card, full width and ragged.
+    full = k1_inputs(*K1_FULL, "tanh", 21)
+    k1_err = compare_k1("full width", full, "tanh", card)
+    k1_err = max(k1_err, compare_k1("ragged", k1_inputs(3, 1000, "relu", 22), "relu",
+                                    card))
+    k1_ms, k1_plain_ms = time_k1(full, "tanh", card)
+    del full
+
+    # Phase 10: the learner through its entry points at full width.  The
+    # symmetric self-play run is the main path of K1; its first minibatch is
+    # kept and held against the plain version afterwards.
+    first, restore = capture_first_minibatch()
+    try:
+        runner, train_step, learner_launches, _ = train(
+            EnvConfig(auto_reset=True), LEARNER, LEARNER_UPDATES, "self-play", card)
+    finally:
+        restore()
+    k1_launches = learner_launches["fused_ppo_grads_fm"]
+    want = LEARNER_UPDATES * LEARNER.update_epochs * LEARNER.num_minibatches
+    if learner_launches != {"fused_ppo_grads_fm": want, "landing_sims_batched": 0,
+                            "fused_rollout": 0}:
+        raise AssertionError(f"self-play: launches {learner_launches}, want {want} "
+                             "K1 and no other")
+    args, kw = first[0]
+    k1_err = max(k1_err, compare_k1("first live minibatch of update 1", args,
+                                    kw["activation"], card, phase=10))
+    time_learner_phases(runner, train_step, LEARNER, card)
+    del runner, train_step, first, args
+    _, _, vs_ai, _ = train(EnvConfig(winning_score=15, auto_reset=True,
+                                     is_player2_computer=True),
+                           VS_AI, 1, "vs rule AI, learner seat 1", card)
+    if (vs_ai["landing_sims_batched"] != VS_AI.rollout_length
+            or vs_ai["fused_ppo_grads_fm"] != VS_AI.update_epochs * VS_AI.num_minibatches
+            or vs_ai["fused_rollout"]):
+        raise AssertionError(f"vs rule AI: launches {vs_ai}")
+
     ms, plain_ms = timed[f"AI self-play frame {HARVEST_FRAME}"]
     print(json.dumps({"kernels": [{
         "name": "landing_sims_batched",
@@ -416,6 +624,15 @@ def main() -> int:
         "max_abs_err": fused_err,
         "ms": fused_ms,
         "plain_ms": fused_plain_ms,
+    }, {
+        "name": "fused_ppo_grads_fm",
+        "route": "cuda",
+        "source": "pikazoo_tpu_torch/csrc/fused_update.cu",
+        "replaces": "pikazoo_tpu/train/fused_update.py:504",
+        "launches": k1_launches,
+        "max_abs_err": k1_err,
+        "ms": k1_ms,
+        "plain_ms": k1_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

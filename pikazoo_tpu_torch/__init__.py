@@ -1,19 +1,24 @@
 """pikazoo_tpu_torch — the PyTorch / CUDA port of ``pikazoo_tpu``.
 
 The batched, bit-exact Pikachu Volleyball environment on int32 tensors, with
-human or rule-AI seats.  It imports ``torch`` and never ``jax``; module names
-mirror ``pikazoo_tpu`` so each counterpart is easy to find.  On a CUDA device
-the rule AI's landing simulation runs as a hand-written Hopper kernel
-(``csrc/landing.cu``), and ``fused_rollout`` advances a batch many frames
-in one launch of another (``csrc/fused_step.cu``); both are built with
-``nvcc`` at first use into ``build/kernels/``.  On the CPU they run as
-plain PyTorch.
+human or rule-AI seats, and the self-play PPO learner that trains on it.  It
+imports ``torch`` and never ``jax``; module names mirror ``pikazoo_tpu`` so
+each counterpart is easy to find.  On a CUDA device the rule AI's landing
+simulation runs as a hand-written Hopper kernel (``csrc/landing.cu``),
+``fused_rollout`` advances a batch many frames in one launch of another
+(``csrc/fused_step.cu``), and the learner's minibatch gradient is a third
+(``csrc/fused_update.cu``); all are built with ``nvcc`` at first use into
+``build/kernels/``.  On the CPU they run as plain PyTorch.
 
 Layers (bottom up):
   core/      physics of one frame: ball, players, collisions, landing
              simulation, rule AI, draw-slot RNG; the fused rollout
-  envs/      the environment: ``PikaZoo.reset_batch`` / ``step_batch``
-  convert    EnvState to and from the JAX package's numpy leaves
+  envs/      the environment: ``PikaZoo.reset_batch`` / ``step_batch``, and
+             the learner's ``step_batch_learner{,_fm}``
+  train/     the learner: ``ActorCritic``, the fused minibatch gradient,
+             ``make_ppo_trainer``, the ``train.run`` CLI
+  convert    EnvState and network weights to and from the JAX package's
+             numpy leaves
 """
 
 from pikazoo_tpu_torch.core.fused_step import fused_rollout

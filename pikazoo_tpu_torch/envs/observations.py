@@ -37,7 +37,12 @@ _BALL_HIGH = [C.GROUND_WIDTH, C.BALL_TOUCHING_GROUND_Y_COORD,
 OBS_LOW = np.asarray(_PLAYER_LOW + _PLAYER_LOW + _BALL_LOW, np.int32)
 OBS_HIGH = np.asarray(_PLAYER_HIGH + _PLAYER_HIGH + _BALL_HIGH, np.int32)
 
-__all__ = ["OBS_DIM", "OBS_LOW", "OBS_HIGH", "NUM_ACTIONS", "assemble_obs"]
+__all__ = ["OBS_DIM", "OBS_LOW", "OBS_HIGH", "NUM_ACTIONS", "assemble_obs",
+           "assemble_norm_obs_blocked", "assemble_norm_obs_fm"]
+
+# Normalisation constants of the learner layouts (as float32, like JAX's).
+_LOW_F = OBS_LOW.astype(np.float32)
+_SPAN_F = (OBS_HIGH - OBS_LOW).astype(np.float32)
 
 
 def _player_cols(p: PlayerState, latch: torch.Tensor) -> list:
@@ -64,3 +69,44 @@ def assemble_obs(p1: PlayerState, p2: PlayerState, b: BallState,
     cb = _ball_cols(b)
     return torch.stack([torch.stack(c1 + c2 + cb, dim=-1),
                         torch.stack(c2 + c1 + cb, dim=-1)], dim=-2)
+
+
+def _norm_seats(p1: PlayerState, p2: PlayerState, b: BallState,
+                latch: torch.Tensor, dim: int) -> torch.Tensor:
+    """Both seats' normalised bf16 columns stacked on ``dim`` (0: feature-
+    major ``(35, B)`` per seat, -1: ``(B, 35)``), seat-blocked along the
+    other axis.  Each column is ``(c.float() - low) / span`` in float32 (a
+    true division, as ``networks.normalize_obs`` and JAX compute it), then
+    rounded once to bf16, so the result is bit-identical with JAX's.  The
+    bounds are divided as tensors on the leaves' device: a Python scalar
+    divisor may be turned into a reciprocal multiply on CUDA."""
+    device = b.x.device
+    shape = (-1, 1) if dim == 0 else (1, -1)
+    low = torch.tensor(_LOW_F, device=device).reshape(shape)
+    span = torch.tensor(_SPAN_F, device=device).reshape(shape)
+
+    def seat(me, opp, latch_me, latch_opp):
+        cols = (_player_cols(me, latch_me) + _player_cols(opp, latch_opp)
+                + _ball_cols(b))
+        raw = torch.stack(cols, dim=dim).float()
+        return ((raw - low) / span).to(torch.bfloat16)
+
+    seat_axis = 1 if dim == 0 else 0
+    return torch.cat([seat(p1, p2, latch[:, 0], latch[:, 1]),
+                      seat(p2, p1, latch[:, 1], latch[:, 0])], dim=seat_axis)
+
+
+def assemble_norm_obs_blocked(p1: PlayerState, p2: PlayerState, b: BallState,
+                              latch: torch.Tensor) -> torch.Tensor:
+    """(2B, 35) bf16 normalised mirrored observations from batched ``(B,)``
+    leaves and the ``(B, 2)`` latch, seat-blocked: rows [0, B) are player 1's
+    view, [B, 2B) player 2's."""
+    return _norm_seats(p1, p2, b, latch, dim=-1)
+
+
+def assemble_norm_obs_fm(p1: PlayerState, p2: PlayerState, b: BallState,
+                         latch: torch.Tensor) -> torch.Tensor:
+    """(35, 2B) bf16 normalised mirrored observations, feature-major: the
+    transpose of :func:`assemble_norm_obs_blocked` (same per-column
+    arithmetic).  This is the layout the PPO rollout and K1 consume."""
+    return _norm_seats(p1, p2, b, latch, dim=0)

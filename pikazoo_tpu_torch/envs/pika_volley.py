@@ -30,7 +30,9 @@ from pikazoo_tpu_torch.core.state import (I32, BallState, PlayerInput,
                                           init_ball_construction,
                                           init_player_construction,
                                           round_init_ball, round_init_player)
-from pikazoo_tpu_torch.envs.observations import assemble_obs
+from pikazoo_tpu_torch.envs.observations import (assemble_norm_obs_blocked,
+                                                 assemble_norm_obs_fm,
+                                                 assemble_obs)
 
 SERVE_MODES = ("winner", "alternate", "random")
 
@@ -234,18 +236,18 @@ class PikaZoo:
         index = torch.arange(batch_size, dtype=torch.int64, device=base.device)
         return self._reset_from_keys(fold_key(base, index))
 
-    def step(self, state: EnvState, actions: torch.Tensor
-             ) -> Tuple[EnvState, TimeStep]:
-        """Advance every env one frame.  ``actions`` is ``S + (2,)`` int
-        (one per seat, in [0, 18); out-of-range actions clamp as in JAX), on
-        the state's device."""
-        if actions.device != state.scores.device:
-            raise ValueError(f"actions on {actions.device}, state on "
-                             f"{state.scores.device}")
+    def _advance(self, state: EnvState, a1: torch.Tensor, a2: torch.Tensor
+                 ) -> Tuple[EnvState, FrameResult]:
+        """One frame of state evolution from per-seat actions of batch shape
+        S, without observations (shared by ``step`` and the learner path)."""
+        for a in (a1, a2):
+            if a.device != state.scores.device:
+                raise ValueError(f"actions on {a.device}, state on "
+                                 f"{state.scores.device}")
         ds = DrawState(key=state.rng_key, counter=state.draw_counter)
         prev = state.power_hit_key_down_prev
-        inp1, latch1 = decode_action(actions[..., 0], prev[..., 0])
-        inp2, latch2 = decode_action(actions[..., 1], prev[..., 1])
+        inp1, latch1 = decode_action(a1, prev[..., 0])
+        inp2, latch2 = decode_action(a2, prev[..., 1])
         latch = torch.stack([latch1, latch2], dim=-1)
 
         fr = env_frame(self.config, ds, state.p1, state.p2, state.ball,
@@ -253,11 +255,10 @@ class PikaZoo:
                        state.is_player2_serve, state.round_ended,
                        state.game_ended, inp1, inp2)
 
-        scores = torch.stack([fr.score1, fr.score2], dim=-1)
         new_state = EnvState(
             p1=fr.p1, p2=fr.p2, ball=fr.ball,
             power_hit_key_down_prev=latch,
-            scores=scores,
+            scores=torch.stack([fr.score1, fr.score2], dim=-1),
             is_player2_serve=fr.is_player2_serve,
             round_ended=fr.round_ended,
             game_ended=fr.game_ended,
@@ -265,12 +266,21 @@ class PikaZoo:
             rng_key=state.rng_key,
             draw_counter=fr.draw_counter,
         )
+        return new_state, fr
+
+    def step(self, state: EnvState, actions: torch.Tensor
+             ) -> Tuple[EnvState, TimeStep]:
+        """Advance every env one frame.  ``actions`` is ``S + (2,)`` int
+        (one per seat, in [0, 18); out-of-range actions clamp as in JAX), on
+        the state's device."""
+        new_state, fr = self._advance(state, actions[..., 0], actions[..., 1])
         ts = TimeStep(
-            obs=assemble_obs(fr.p1, fr.p2, fr.ball, latch),
+            obs=assemble_obs(fr.p1, fr.p2, fr.ball,
+                             new_state.power_hit_key_down_prev),
             rewards=torch.stack([fr.reward_p1, -fr.reward_p1], dim=-1),
             terminated=fr.game_ended,
             round_ended=fr.round_ended,
-            scores=scores,
+            scores=new_state.scores,
             touched_ground=fr.touched,
             sounds=fr.sounds,
         )
@@ -279,3 +289,31 @@ class PikaZoo:
     # ``step`` already takes any batch shape; ``step_batch`` is the name the
     # JAX package gives its vmapped form, for ``(B, 2)`` actions.
     step_batch = step
+
+    def step_batch_learner(self, state: EnvState, a1: torch.Tensor,
+                           a2: torch.Tensor
+                           ) -> Tuple[EnvState, torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+        """Learner path: per-seat ``(B,)`` actions in, normalised
+        observations out.  Returns ``(state, norm_obs, reward_p1,
+        terminated)``: ``norm_obs`` is (2B, 35) bf16 seat-blocked (rows
+        [0, B) are player 1's view), ``reward_p1`` and ``terminated`` are
+        (B,) int32; player 2's reward is ``-reward_p1``."""
+        new_state, fr = self._advance(state, a1, a2)
+        norm_obs = assemble_norm_obs_blocked(
+            new_state.p1, new_state.p2, new_state.ball,
+            new_state.power_hit_key_down_prev)
+        return new_state, norm_obs, fr.reward_p1, fr.game_ended
+
+    def step_batch_learner_fm(self, state: EnvState, a1: torch.Tensor,
+                              a2: torch.Tensor
+                              ) -> Tuple[EnvState, torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+        """Like :meth:`step_batch_learner`, with the observations
+        feature-major: (35, 2B) bf16, seat-blocked columns.  The layout the
+        PPO rollout and the fused gradient kernel consume."""
+        new_state, fr = self._advance(state, a1, a2)
+        norm_obs = assemble_norm_obs_fm(
+            new_state.p1, new_state.p2, new_state.ball,
+            new_state.power_hit_key_down_prev)
+        return new_state, norm_obs, fr.reward_p1, fr.game_ended

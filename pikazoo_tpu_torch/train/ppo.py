@@ -1,0 +1,382 @@
+"""Self-play PPO actor-learner on the batched env.
+
+Counterpart of ``pikazoo_tpu.train.ppo``.  One ``train_step`` rolls out ``T``
+frames on ``B`` envs (both seats share the policy; each seat contributes a
+trajectory, so the learner batch is ``T x 2B``), computes GAE, and runs
+several clipped-PPO epochs of minibatches over the time axis.
+
+Learner tensors keep the JAX package's layouts: the seat dimension folded
+into the batch, seat-blocked (columns [0, B) are seat 1, [B, 2B) seat 2), and
+the observations feature-major ``(T, 35, 2B)`` bf16, the layout the fused
+gradient kernel K1 (``train.fused_update``) consumes as it is.
+
+PyTorch runs eagerly, so the JAX ``scan``s become Python loops: the rollout
+over frames, GAE over time, the update over epochs and minibatches.  The
+optimizer is ``optax.chain(clip_by_global_norm, adam)`` written out as optax
+computes it.  On a CUDA device float32 products run in full float32
+(``torch.backends.cuda.matmul.allow_tf32`` stays False), which the inverse-CDF
+sampling relies on; bf16 products are the network's own.
+
+Not ported yet (they raise): the row-major kernel K4 (``fused_update="on"``),
+the int8 update modes, the minibatch shuffle and the device mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from pikazoo_tpu_torch.envs.observations import assemble_obs
+from pikazoo_tpu_torch.envs.pika_volley import EnvState, PikaZoo
+from pikazoo_tpu_torch.train.fused_update import fused_ppo_grads_fm
+from pikazoo_tpu_torch.train.networks import (BF16, ActorCritic, Params, apply,
+                                              apply_fm, normalize_obs)
+
+
+@dataclasses.dataclass(frozen=True)
+class PPOConfig:
+    """The JAX ``PPOConfig``: same fields, same defaults."""
+
+    num_envs: int = 4096
+    rollout_length: int = 128
+    num_actions: int = 18
+    learning_rate: float = 3e-4
+    anneal_updates: Optional[int] = None  # linear LR anneal to 0 over this many updates
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    entropy_coef: float = 0.01
+    value_coef: float = 0.5
+    max_grad_norm: float = 0.5
+    update_epochs: int = 4
+    num_minibatches: int = 4  # splits the time axis
+    hidden: Tuple[int, ...] = (256, 256)
+    activation: str = "tanh"
+    # "both": symmetric self-play; "p1": only seat 1's trajectory trains
+    # (against the rule AI on seat 2: pass is_player2_computer=True).
+    learner_seats: str = "both"
+    # Minibatch gradients: "auto" = K1 on a CUDA device, autograd on the CPU;
+    # "fm" = K1 (its plain version on the CPU); "off" = autograd of loss_fn;
+    # "on" = the row-major kernel K4, not ported yet.
+    fused_update: str = "auto"
+    update_quant: str = "none"  # int8 modes of K1: not ported yet
+    shuffle_minibatches: bool = False  # not ported yet
+
+
+class Transition(NamedTuple):
+    """The trajectory, leaves stacked over the T frames, seat-blocked."""
+
+    obs: torch.Tensor       # (T, 35, 2B) normalised bf16, feature-major
+    action: torch.Tensor    # (T, 2B) int32
+    log_prob: torch.Tensor  # (T, 2B) float32
+    value: torch.Tensor     # (T, 2B) float32
+    reward: torch.Tensor    # (T, 2B) float32
+    done: torch.Tensor      # (T, 2B) float32, the episode end repeated per seat
+
+
+class AdamState(NamedTuple):
+    """optax's chain state, flattened: ``count`` is both adam's step count
+    and the LR schedule's (they advance together), ``mu`` and ``nu`` are
+    keyed like the params."""
+
+    count: torch.Tensor  # () int32
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+
+class PPORunnerState(NamedTuple):
+    params: Params
+    opt_state: AdamState
+    env_state: EnvState
+    last_obs: torch.Tensor  # (B, 2, 35) int32
+    key: torch.Generator    # draws the rollout's uniforms, on the device
+    update_index: int
+
+
+class TrainMetrics(NamedTuple):
+    total_loss: torch.Tensor
+    policy_loss: torch.Tensor
+    value_loss: torch.Tensor
+    entropy: torch.Tensor
+    approx_kl: torch.Tensor
+    mean_reward: torch.Tensor
+    episodes_finished: torch.Tensor
+    env_steps: int
+
+
+def gae_associative(value: torch.Tensor, reward: torch.Tensor,
+                    done: torch.Tensor, last_value: torch.Tensor,
+                    gamma: float, lam: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GAE advantages and targets over the leading time axis T.
+
+    The recurrence ``gae_t = delta_t + (gamma * lam * not_done_t) *
+    gae_{t+1}``, written here as the sequential suffix scan (T steps over
+    the (2B,) batch) where the JAX package uses an associative scan; the two
+    differ at rounding level only."""
+    not_done = 1.0 - done
+    next_value = torch.cat([value[1:], last_value[None]], dim=0)
+    delta = reward + gamma * next_value * not_done - value
+    coef = gamma * lam * not_done
+    advantages = torch.empty_like(delta)
+    gae = torch.zeros_like(last_value)
+    for t in range(value.shape[0] - 1, -1, -1):
+        gae = delta[t] + coef[t] * gae
+        advantages[t] = gae
+    return advantages, advantages + value
+
+
+def make_optimizer(cfg: PPOConfig):
+    """``optax.chain(clip_by_global_norm(max_grad_norm), adam(lr))`` with
+    ``optax.linear_schedule(lr, 0, anneal_updates * epochs * minibatches)``
+    as the LR when ``anneal_updates`` is set: ``(init, update)``, where
+    ``update(grads, state) -> (updates, state)`` and the caller adds the
+    updates to the params.  The clip divides by the global norm itself (no
+    epsilon, unlike ``torch.nn.utils.clip_grad_norm_``); Adam has bias
+    correction and its epsilon outside the square root."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    max_norm = cfg.max_grad_norm
+    steps = (cfg.anneal_updates * cfg.update_epochs * cfg.num_minibatches
+             if cfg.anneal_updates else None)
+
+    def init(params: Params) -> AdamState:
+        zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+        count = torch.zeros((), dtype=torch.int32,
+                            device=next(iter(params.values())).device)
+        return AdamState(count, zeros, {k: v.clone() for k, v in zeros.items()})
+
+    def update(grads: Dict[str, torch.Tensor], state: AdamState):
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        keep = g_norm < max_norm
+        grads = {k: torch.where(keep, g, (g / g_norm) * max_norm)
+                 for k, g in grads.items()}
+        mu = {k: (1 - b1) * g + b1 * state.mu[k] for k, g in grads.items()}
+        nu = {k: (1 - b2) * (g * g) + b2 * state.nu[k] for k, g in grads.items()}
+        count = state.count + 1
+        c = count.float()
+        bc1 = 1 - torch.tensor(b1, device=c.device) ** c
+        bc2 = 1 - torch.tensor(b2, device=c.device) ** c
+        if steps:
+            done = torch.clamp(state.count, 0, steps).float()
+            lr = cfg.learning_rate * (1 - done / steps)  # linear_schedule(lr, 0, steps)
+            step = -lr
+        else:
+            step = -cfg.learning_rate
+        updates = {k: step * ((mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps))
+                   for k in grads}
+        return updates, AdamState(count, mu, nu)
+
+    return init, update
+
+
+def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cpu",
+                     mesh=None):
+    """Build ``(init_fn, train_step, network)``.
+
+    ``init_fn(seed) -> PPORunnerState`` and ``train_step(runner) ->
+    (runner, TrainMetrics)``, everything on ``device``.  ``train_step``
+    carries the phases as attributes, as the JAX trainer does:
+    ``rollout_fn(params, env_state, last_obs, uniforms)``,
+    ``policy_sample_fn(params, norm_obs_fm, u)``,
+    ``minibatch_grads_fn(params, mtraj, madv, mtarget)``,
+    ``update_fn(params, opt_state, traj, advantages, targets)``, ``tx``
+    (the optimizer's ``(init, update)``) and ``provenance``."""
+    device = torch.device(device)
+    if mesh is not None:
+        raise NotImplementedError("the device mesh is not ported yet "
+                                  "(ROADMAP Queue 1 item 2)")
+    if cfg.fused_update == "on":
+        raise NotImplementedError(
+            "fused_update='on' is the row-major kernel K4 "
+            "(pikazoo_tpu/train/fused_update.py:651), not ported yet: "
+            "ROADMAP Queue 2, K4")
+    if cfg.fused_update not in ("auto", "fm", "off"):
+        raise ValueError(f"unknown fused_update {cfg.fused_update!r}")
+    if cfg.update_quant != "none":
+        raise NotImplementedError(f"update_quant={cfg.update_quant!r}: the int8 modes "
+                                  "of K1 are not ported yet (ROADMAP Queue 2, K1)")
+    if cfg.shuffle_minibatches:
+        raise NotImplementedError("shuffle_minibatches is not ported yet "
+                                  "(ROADMAP Queue 1)")
+    if cfg.learner_seats not in ("both", "p1"):
+        raise ValueError(f"unknown learner_seats {cfg.learner_seats!r}")
+    if cfg.rollout_length % cfg.num_minibatches:
+        raise ValueError("num_minibatches must divide rollout_length")
+    use_fused = (cfg.fused_update == "fm"
+                 or (cfg.fused_update == "auto" and device.type == "cuda"))
+    network = ActorCritic(cfg.num_actions, cfg.hidden, cfg.activation,
+                          device=device)
+    tx_init, tx_update = make_optimizer(cfg)
+    B = cfg.num_envs
+
+    # ---------------------------------------------------------------- init --
+    def init_fn(seed: int) -> PPORunnerState:
+        """Params from a CPU generator seeded with ``seed`` (the same on any
+        device), envs from ``reset_batch(seed)``, and the rollout's generator
+        on the device, seeded with ``seed``."""
+        init_gen = torch.Generator().manual_seed(seed)
+        net = ActorCritic(cfg.num_actions, cfg.hidden, cfg.activation,
+                          generator=init_gen)
+        params = {k: v.detach().to(device) for k, v in net.params().items()}
+        env_state, ts = env.reset_batch(seed, B, device=device)
+        key = torch.Generator(device=device).manual_seed(seed)
+        return PPORunnerState(params, tx_init(params), env_state, ts.obs, key, 0)
+
+    # ------------------------------------------------------------- rollout --
+    @torch.no_grad()
+    def policy_sample(params: Params, norm_obs_fm: torch.Tensor, u: torch.Tensor):
+        """Feature-major policy step: (35, 2B) bf16 obs and the (1, 2B)
+        uniform row -> (action (2B,) int32, log_prob, value).  Inverse-CDF
+        sampling with one uniform per column: the action is the number of
+        CDF entries below ``u`` times the column total (~1, so bf16 rounding
+        in the logits can never push ``u`` past the last bucket).  The CDF
+        is an f32 ``cumsum`` where the JAX package multiplies by a
+        triangular matrix."""
+        logits, value = apply_fm(params, norm_obs_fm, cfg.activation)
+        log_probs = torch.log_softmax(logits, dim=0)
+        cdf = torch.cumsum(torch.exp(log_probs), dim=0)
+        action = (cdf < u * cdf[-1:]).sum(dim=0)
+        log_prob = torch.gather(log_probs, 0, action[None])[0]
+        return action.to(torch.int32), log_prob, value
+
+    @torch.no_grad()
+    def rollout(params: Params, env_state: EnvState, obs: torch.Tensor,
+                uniforms: torch.Tensor):
+        """``T = uniforms.shape[0]`` frames of ``step_batch_learner_fm``
+        from raw observations ``obs`` (B, 2, 35), one (1, 2B) uniform row a
+        frame.  Returns ``((env_state, last_norm_obs), Transition)``."""
+        n = obs.shape[0]
+        norm = torch.cat([normalize_obs(obs[:, 0]).t(), normalize_obs(obs[:, 1]).t()],
+                         dim=1).to(BF16)                           # (35, 2B)
+        T = uniforms.shape[0]
+        f32 = torch.float32
+        traj = Transition(
+            obs=torch.empty((T, *norm.shape), dtype=BF16, device=device),
+            action=torch.empty((T, 2 * n), dtype=torch.int32, device=device),
+            log_prob=torch.empty((T, 2 * n), dtype=f32, device=device),
+            value=torch.empty((T, 2 * n), dtype=f32, device=device),
+            reward=torch.empty((T, 2 * n), dtype=f32, device=device),
+            done=torch.empty((T, 2 * n), dtype=f32, device=device))
+        for t in range(T):
+            action, log_prob, value = policy_sample(params, norm, uniforms[t])
+            env_state, next_norm, reward1, terminated = env.step_batch_learner_fm(
+                env_state, action[:n], action[n:])
+            done = (terminated == 1).to(f32)
+            reward1 = reward1.to(f32)
+            traj.obs[t] = norm
+            traj.action[t] = action
+            traj.log_prob[t] = log_prob
+            traj.value[t] = value
+            traj.reward[t] = torch.cat([reward1, -reward1])
+            traj.done[t] = torch.cat([done, done])
+            norm = next_norm
+        return (env_state, norm), traj
+
+    # ---------------------------------------------------------------- loss --
+    def loss_fn(params: Params, batch: Transition, advantages: torch.Tensor,
+                targets: torch.Tensor):
+        """The clipped-PPO loss of the JAX ``loss_fn``, differentiable:
+        ``(total, (policy, value, entropy, approx_kl))``."""
+        logits, value = apply(params, batch.obs.transpose(-2, -1), cfg.activation,
+                              pre_normalized=True)
+        log_probs = torch.log_softmax(logits, dim=-1)
+        one_hot = torch.nn.functional.one_hot(batch.action.long(), cfg.num_actions)
+        log_prob = (log_probs * one_hot.to(log_probs.dtype)).sum(-1)
+        ratio = torch.exp(log_prob - batch.log_prob)
+        # Population std (ddof 0), as jnp.std.
+        adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+        unclipped = ratio * adv
+        clipped = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv
+        policy_loss = -torch.minimum(unclipped, clipped).mean()
+        value_clipped = batch.value + torch.clamp(value - batch.value,
+                                                  -cfg.clip_eps, cfg.clip_eps)
+        value_loss = 0.5 * torch.maximum((value - targets) ** 2,
+                                         (value_clipped - targets) ** 2).mean()
+        entropy = -(torch.exp(log_probs) * log_probs).sum(-1).mean()
+        total = policy_loss + cfg.value_coef * value_loss - cfg.entropy_coef * entropy
+        approx_kl = ((ratio - 1) - torch.log(ratio)).mean()
+        return total, (policy_loss, value_loss, entropy, approx_kl)
+
+    # ------------------------------------------------------ update dispatch --
+    def minibatch_grads(params: Params, mtraj: Transition, madv: torch.Tensor,
+                        mtarget: torch.Tensor):
+        """The minibatch gradient train_step runs: K1 (its plain version on
+        the CPU) or autograd of ``loss_fn``.  Returns ``(grads, losses[5])``."""
+        if use_fused:
+            adv_n = (madv - madv.mean()) / (madv.std(correction=0) + 1e-8)
+            return fused_ppo_grads_fm(
+                params, mtraj.obs, mtraj.action, mtraj.log_prob, mtraj.value,
+                adv_n, mtarget, num_actions=cfg.num_actions,
+                activation=cfg.activation, clip_eps=cfg.clip_eps,
+                value_coef=cfg.value_coef, entropy_coef=cfg.entropy_coef)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        with torch.enable_grad():
+            total, aux = loss_fn(leaves, mtraj, madv, mtarget)
+            grads = torch.autograd.grad(total, list(leaves.values()))
+        losses = torch.stack([total, *aux]).detach()
+        return dict(zip(leaves, grads)), losses
+
+    @torch.no_grad()
+    def update(params: Params, opt_state: AdamState, traj: Transition,
+               advantages: torch.Tensor, targets: torch.Tensor):
+        """``update_epochs`` passes over ``num_minibatches`` consecutive
+        slices of the time axis, an optimizer step each.  Returns
+        ``(params, opt_state, losses (epochs, minibatches, 5))``."""
+        t_mb = traj.action.shape[0] // cfg.num_minibatches
+        losses = []
+        for _ in range(cfg.update_epochs):
+            for i in range(cfg.num_minibatches):
+                sl = slice(i * t_mb, (i + 1) * t_mb)
+                mtraj = Transition(*[leaf[sl] for leaf in traj])
+                grads, mb_losses = minibatch_grads(params, mtraj, advantages[sl],
+                                                   targets[sl])
+                updates, opt_state = tx_update(grads, opt_state)
+                params = {k: v + updates[k] for k, v in params.items()}
+                losses.append(mb_losses)
+        shape = (cfg.update_epochs, cfg.num_minibatches, 5)
+        return params, opt_state, torch.stack(losses).reshape(shape)
+
+    # ---------------------------------------------------------- train step --
+    @torch.no_grad()
+    def train_step(runner: PPORunnerState) -> Tuple[PPORunnerState, TrainMetrics]:
+        uniforms = torch.rand((cfg.rollout_length, 1, 2 * B), generator=runner.key,
+                              device=device)
+        (env_state, last_norm), traj = rollout(runner.params, runner.env_state,
+                                               runner.last_obs, uniforms)
+        last_obs = assemble_obs(env_state.p1, env_state.p2, env_state.ball,
+                                env_state.power_hit_key_down_prev)
+        _, last_value = apply_fm(runner.params, last_norm, cfg.activation)
+        advantages, targets = gae_associative(traj.value, traj.reward, traj.done,
+                                              last_value, cfg.gamma, cfg.gae_lambda)
+        if cfg.learner_seats == "p1":
+            # Seat 1 is the first half of the (last) env axis of every leaf.
+            traj = Transition(*[leaf[..., :B] for leaf in traj])
+            advantages, targets = advantages[..., :B], targets[..., :B]
+        params, opt_state, losses = update(runner.params, runner.opt_state, traj,
+                                           advantages, targets)
+        total, policy_loss, value_loss, entropy, approx_kl = losses.mean(dim=(0, 1))
+        metrics = TrainMetrics(
+            total_loss=total, policy_loss=policy_loss, value_loss=value_loss,
+            entropy=entropy, approx_kl=approx_kl,
+            mean_reward=traj.reward.mean(),
+            # done is stored once per (env, seat); episodes are per env.
+            episodes_finished=traj.done.sum() / (2 if cfg.learner_seats == "both" else 1),
+            env_steps=cfg.rollout_length * B)
+        runner = PPORunnerState(params, opt_state, env_state, last_obs, runner.key,
+                                runner.update_index + 1)
+        return runner, metrics
+
+    train_step.rollout_fn = rollout
+    train_step.policy_sample_fn = policy_sample
+    train_step.minibatch_grads_fn = minibatch_grads
+    train_step.update_fn = update
+    train_step.tx = (tx_init, tx_update)
+    train_step.provenance = {
+        "fused_update": "fm" if use_fused else "autograd",
+        "configured": cfg.fused_update,
+        "update_quant": cfg.update_quant,
+        "backend": device.type,
+    }
+    return init_fn, train_step, network
