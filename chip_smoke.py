@@ -10,13 +10,19 @@ drives the port's env paths with rule-AI and random-action seats (the eager
 ``PikaZoo.reset_batch`` / ``step_batch``, and ``fused_rollout``, many frames
 per launch), compares a card trajectory with a CPU trajectory leaf by leaf,
 and trains: the self-play PPO learner through ``make_ppo_trainer`` at full
-width, its minibatch gradients in the fused kernel K1.  Every phase prints
-at least one line; any failure raises and the script exits non-zero.  The last line is a JSON object naming the device.  Without a
-CUDA device it exits with status 1 before printing any result.
+width, its minibatch gradients in the fused kernel K1 (bf16), then in the
+row-major kernel K4 and in K1's int8, int8fwd and bf16-backward modes, each
+of those held against its plain version first.  Every phase prints at least
+one line; any failure raises and the script exits non-zero.  The line
+before the last lists every kernel with its launches on the main path, its
+error against its plain version, its time, its plain version's time and its
+bound; the last line is a JSON object naming the device.  Without a CUDA
+device it exits with status 1 before printing any result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -27,13 +33,13 @@ import numpy as np
 import torch
 
 from pikazoo_tpu_torch import EnvConfig, PikaZoo, fused_rollout
-from pikazoo_tpu_torch.core import fused_step, predict_cuda
+from pikazoo_tpu_torch.core import fused_step, predict, predict_cuda
 from pikazoo_tpu_torch.core.predict import landing_sims_any
 from pikazoo_tpu_torch.envs import OBS_HIGH, OBS_LOW
 from pikazoo_tpu_torch.envs.pika_volley import EnvState
 from pikazoo_tpu_torch.train import PPOConfig, make_ppo_trainer, ppo
 from pikazoo_tpu_torch.train import fused_update
-from pikazoo_tpu_torch.train.fused_update import fused_ppo_grads_fm
+from pikazoo_tpu_torch.train.fused_update import fused_ppo_grads, fused_ppo_grads_fm
 from pikazoo_tpu_torch.train.networks import ActorCritic, apply_fm
 
 AI_BATCH, AI_FRAMES = 65536, 500          # rule-AI self-play (both seats)
@@ -78,6 +84,45 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+# The card's roofline (NVIDIA's published H100 SXM figures at 700 W): HBM
+# bytes/s and peak operations/s by type.  Integer work runs on the CUDA
+# cores' INT32 units: 132 SMs x 64 units x 1.98 GHz, one operation a unit a
+# clock.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "int32": 132 * 64 * 1.98e9}
+# Integer operations of one lane's landing-loop iteration, counted from
+# core/predict.py::_one_iteration (adds, compares, selects, abs, negations).
+LANDING_ITERATION_OPS = 28
+
+
+def bound(nbytes: float, ops: dict):
+    """(bound_ms, bound_by): the larger of the bytes the function must move
+    over HBM's rate and its operations over the peak rate of their type."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = sum(float(n) / PEAK_OPS_PER_S[t] for t, n in ops.items()) * 1e3
+    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
+
+
+def count_landing_iterations(fn):
+    """Run ``fn()`` with the plain landing loop counting, for each of its 7
+    lanes, the iterations in which the lane was live: the work these inputs
+    need, since each lane's loop ends at its landing.  Returns (fn's result,
+    counts (7,) int64)."""
+    orig = predict._one_iteration
+    total = [0]
+
+    def counting(x, y, vx, vy, count, full_rule):
+        total[0] = total[0] + (vx != 0).reshape(vx.shape[0], -1).sum(dim=1)
+        return orig(x, y, vx, vy, count, full_rule)
+
+    predict._one_iteration = counting
+    try:
+        out = fn()
+    finally:
+        predict._one_iteration = orig
+    return out, total[0]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -177,7 +222,8 @@ def rollout_checks(env: PikaZoo, batch: int, frames: int, actions_fn, card: str,
 def zero_counts():
     predict_cuda.landing_sims_batched.launches = 0
     fused_rollout.launches = 0
-    fused_ppo_grads_fm.launches = 0
+    fused_update.zero_fm_counts()
+    fused_ppo_grads.launches = 0
 
 
 def build_all(card: str):
@@ -187,9 +233,10 @@ def build_all(card: str):
         lib = build()
         return lib._name, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        builds = [pool.submit(timed_build, b) for b in
-                  (predict_cuda._library, fused_step._library, fused_update._library)]
+    libraries = (predict_cuda._library, fused_step._library, fused_update._library,
+                 fused_update._library_rm)
+    with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
+        builds = [pool.submit(timed_build, b) for b in libraries]
         for future in builds:
             name, seconds = future.result()
             print(f"phase 2 build: {seconds:.2f} s -> {name} [{card}]")
@@ -255,7 +302,13 @@ def fused_path(label: str, cfg: EnvConfig, batch: int, calls: int,
 def time_fused(label: str, cfg: EnvConfig, state: EnvState, card: str):
     """CUDA-event ms of one FUSED_FRAMES-frame call from a live state, kernel
     and plain, interleaved plain, kernel, kernel, plain.  The kernel runs in
-    place on its own buffer, so its calls continue one another."""
+    place on its own buffer, so its calls continue one another.  Then its
+    bound: the packed state read and written once, and, with a computer
+    seat, the expected-landing loop's iterations that this call's frames
+    need (lane 0 of one more plain call, counted; the candidate lanes run
+    only as the AI asks for them, so they are left out of the least work).
+    The physics' own operations are not counted: the bound is that of the
+    landing loop and the state's bytes alone, below the frame's least time."""
     live = fused_step.pack_state(state, 1)
     buf = live.clone()
     kernel = lambda: fused_step.rollout_packed(buf, cfg, FUSED_FRAMES)
@@ -263,10 +316,18 @@ def time_fused(label: str, cfg: EnvConfig, state: EnvState, card: str):
     p1, k1, k2, p2 = (cuda_ms(plain, 1), cuda_ms(kernel, 5),
                       cuda_ms(kernel, 5), cuda_ms(plain, 1))
     batch = live.shape[1]
+    iterations = 0
+    if cfg.is_player1_computer or cfg.is_player2_computer:
+        _, lanes = count_landing_iterations(plain)
+        iterations = int(lanes[0])
+    bound_ms, bound_by = bound(2 * live.numel() * 4,
+                               {"int32": iterations * LANDING_ITERATION_OPS})
     print(f"phase 8 time [{label}] B={batch} x {FUSED_FRAMES} frames: kernel "
           f"{k1:.4f} / {k2:.4f} ms ({batch * FUSED_FRAMES / min(k1, k2) * 1e3:.0f} "
-          f"env-steps/s), plain {p1:.1f} / {p2:.1f} ms [{card}]")
-    return min(k1, k2), min(p1, p2)
+          f"env-steps/s), plain {p1:.1f} / {p2:.1f} ms; bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({iterations} expected-landing iterations; physics not counted) "
+          f"[{card}]")
+    return min(k1, k2), min(p1, p2), (bound_ms, bound_by)
 
 
 def compare_devices(cfg: EnvConfig, label: str, seed: int):
@@ -293,19 +354,26 @@ def compare_devices(cfg: EnvConfig, label: str, seed: int):
     print(f"phase 6 card vs CPU [{label}]: B={PARITY_BATCH} x {PARITY_FRAMES} frames, "
           "every EnvState leaf and TimeStep field equal on every frame")
 
-# K1 and the learner (phases 9-10).
+# K1, K4 and the learner (phases 9-12).
 K1_KW = dict(num_actions=18, clip_eps=0.2, value_coef=0.5, entropy_coef=0.01)
 K1_FULL = (32, 131072)  # a full-width minibatch: 32 frames x 2B = 131072 columns
-# Kernel vs plain differ in summation order and so in rare bf16 roundings.
-LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-6
-GRAD_REL_L2, GRAD_COS = 1e-3, 0.99999
+HIDDEN = (256, 256)
+# (losses rtol, grad leaf relative L2, grad leaf cos).  Kernel vs plain differ
+# in summation order and so in rare bf16 roundings.  Every mode and K4 are
+# held to it.
+LOSS_ATOL = 1e-6
+BF16_TOL = (1e-4, 1e-3, 0.99999)
 LEARNER = PPOConfig(num_envs=65536, rollout_length=128, num_minibatches=4,
-                    update_epochs=4, hidden=(256, 256))
+                    update_epochs=4, hidden=HIDDEN)
 LEARNER_UPDATES = 3
+K4_UPDATES = 2
 # The artifacts/vs_ai_policy recipe (tests/test_trained_artifact.py:23-26).
 VS_AI = PPOConfig(num_envs=8192, rollout_length=128, num_minibatches=8,
-                  update_epochs=4, hidden=(256, 256), entropy_coef=0.01,
+                  update_epochs=4, hidden=HIDDEN, entropy_coef=0.01,
                   learner_seats="p1", learning_rate=5e-4)
+# K1's modes other than bf16: (kernels-line name, keywords, tolerance).
+K1_MODES = {"int8": dict(quant="int8"), "int8fwd": dict(quant="int8fwd"),
+            "bwd_bf16": dict(bwd_bf16=True)}
 
 
 def k1_inputs(frames: int, cols: int, activation: str, seed: int):
@@ -314,7 +382,7 @@ def k1_inputs(frames: int, cols: int, activation: str, seed: int):
     network perturbed by 0.3 N(0, 1) so that both clip branches fire,
     normalised N(0, 1) advantages, targets = value + N(0, 1)."""
     rng = np.random.default_rng(seed)
-    net = ActorCritic(18, (256, 256), activation,
+    net = ActorCritic(18, HIDDEN, activation,
                       generator=torch.Generator().manual_seed(seed))
     params = {k: v.detach().cuda() for k, v in net.params().items()}
     card = lambda a: torch.from_numpy(a).cuda()
@@ -331,20 +399,29 @@ def k1_inputs(frames: int, cols: int, activation: str, seed: int):
     return params, obs, action, logp_old, value, adv, target
 
 
-def compare_k1(label: str, args, activation: str, card: str, phase: int = 9):
-    """K1 vs its plain version on the same card tensors, within the stated
-    tolerances, and two launches bit-identical.  Returns the largest
-    absolute difference over the grads and losses."""
-    kw = dict(K1_KW, activation=activation)
-    grads, losses = fused_ppo_grads_fm(*args, **kw)
-    grads2, losses2 = fused_ppo_grads_fm(*args, **kw)
-    want, want_losses = fused_update.fused_ppo_grads_fm_plain(*args, **kw)
+def rows_of(args):
+    """A feature-major minibatch flattened to K4's rows, as the trainer
+    flattens it: obs (T, F, N) -> (T*N, F), per-row (T, N) -> (T*N,)."""
+    params, obs, *rest = args
+    return (params, obs.transpose(1, 2).reshape(-1, obs.shape[1]),
+            *[x.reshape(-1) for x in rest])
+
+
+def compare_grads(label: str, fn, plain, args, kw, tol, card: str, phase: int):
+    """Kernel vs its plain version on the same card tensors, within ``tol``
+    (losses rtol, grad leaf relative L2, grad leaf cos), and two launches
+    bit-identical.  Returns the largest absolute difference over the grads
+    and losses."""
+    loss_rtol, rel_l2, min_cos = tol
+    grads, losses = fn(*args, **kw)
+    grads2, losses2 = fn(*args, **kw)
+    want, want_losses = plain(*args, **kw)
     torch.cuda.synchronize()
     if not (torch.equal(losses, losses2)
             and all(torch.equal(grads[k], grads2[k]) for k in grads)):
-        raise AssertionError(f"K1 [{label}]: two launches on the same inputs differ")
-    if not torch.allclose(losses, want_losses, rtol=LOSS_RTOL, atol=LOSS_ATOL):
-        raise AssertionError(f"K1 [{label}]: losses {losses.tolist()} vs plain "
+        raise AssertionError(f"{label}: two launches on the same inputs differ")
+    if not torch.allclose(losses, want_losses, rtol=loss_rtol, atol=LOSS_ATOL):
+        raise AssertionError(f"{label}: losses {losses.tolist()} vs plain "
                              f"{want_losses.tolist()}")
     worst_rel, worst_cos = 0.0, 1.0
     err = float((losses - want_losses).abs().max())
@@ -352,30 +429,66 @@ def compare_k1(label: str, args, activation: str, card: str, phase: int = 9):
         g, w = grads[k].double().flatten(), w.double().flatten()
         rel = float((g - w).norm() / w.norm())
         cos = float(g @ w / (g.norm() * w.norm()))
-        if not (rel <= GRAD_REL_L2 and cos >= GRAD_COS):
-            raise AssertionError(f"K1 [{label}]: {k} relative L2 {rel:.3e}, cos {cos:.8f}")
+        if not (rel <= rel_l2 and cos >= min_cos):
+            raise AssertionError(f"{label}: {k} relative L2 {rel:.3e}, cos {cos:.8f}")
         worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
         err = max(err, float((g - w).abs().max()))
-    frames, _, cols = args[1].shape
-    print(f"phase {phase} K1 vs plain [{label}] T={frames} N={cols} {activation}: losses "
+    shape = "x".join(str(d) for d in args[1].shape)
+    print(f"phase {phase} {label} vs plain, obs {shape}, {kw['activation']}: losses "
           f"{[round(x, 6) for x in losses.tolist()]}, worst grad leaf relative L2 "
           f"{worst_rel:.3e} cos {worst_cos:.8f}, max |diff| {err:.3e}, two launches "
           f"bit-identical [{card}]")
     return err
 
 
-def time_k1(args, activation: str, card: str):
-    """CUDA-event ms of K1 and of its plain version, interleaved plain,
+def chains_apart(args, kw, card: str):
+    """The bf16 backward chain's plain version against the bf16 mode's on
+    the same inputs.  Raises unless some grad leaf differs by more than
+    BF16_TOL's relative L2: the bound K1 bwd_bf16 is held to then tells a
+    kernel that ran the other chain from the right one."""
+    plain = fused_update.fused_ppo_grads_fm_plain
+    chain, _ = plain(*args, **dict(kw, bwd_bf16=True))
+    stock, _ = plain(*args, **kw)
+    rel = {k: float((chain[k].double() - stock[k].double()).norm() / stock[k].double().norm())
+           for k in stock}
+    worst = max(rel, key=rel.get)
+    if rel[worst] <= BF16_TOL[1]:
+        raise AssertionError(f"bwd_bf16 plain within {rel[worst]:.3e} of the bf16 mode's: "
+                             f"its bound {BF16_TOL[1]} cannot tell the chains apart")
+    shape = "x".join(str(d) for d in args[1].shape)
+    print(f"phase 11 K1 plain bf16 chain vs plain bf16 mode, obs {shape}: worst grad leaf "
+          f"relative L2 {rel[worst]:.3e} ({worst}), above the bound {BF16_TOL[1]} [{card}]")
+
+
+def time_grads(label: str, fn, plain, args, kw, card: str, phase: int):
+    """CUDA-event ms of a kernel and of its plain version, interleaved plain,
     kernel, kernel, plain."""
-    kw = dict(K1_KW, activation=activation)
-    kernel = lambda: fused_ppo_grads_fm(*args, **kw)
-    plain = lambda: fused_update.fused_ppo_grads_fm_plain(*args, **kw)
-    p1, k1, k2, p2 = (cuda_ms(plain, 1), cuda_ms(kernel, 5), cuda_ms(kernel, 5),
-                      cuda_ms(plain, 1))
-    frames, _, cols = args[1].shape
-    print(f"phase 9 time K1 T={frames} N={cols}: kernel {k1:.3f} / {k2:.3f} ms, "
-          f"plain {p1:.3f} / {p2:.3f} ms [{card}]")
+    p1, k1, k2, p2 = (cuda_ms(lambda: plain(*args, **kw), 1),
+                      cuda_ms(lambda: fn(*args, **kw), 5),
+                      cuda_ms(lambda: fn(*args, **kw), 5),
+                      cuda_ms(lambda: plain(*args, **kw), 1))
+    print(f"phase {phase} time {label}: kernel {k1:.3f} / {k2:.3f} ms, plain "
+          f"{p1:.3f} / {p2:.3f} ms [{card}]")
     return min(k1, k2), min(p1, p2)
+
+
+def grad_bound(rows: int, quant: str = "none", f: int = 35, num_actions: int = 18):
+    """(bound_ms, bound_by) of one PPO-gradient call over ``rows`` columns
+    at HIDDEN: the inputs read and the grads written once, and the products'
+    operations by type (forward, the dW products, the dh products; an int8
+    mode moves its products to the int8 rate, but for the two bf16 head
+    products of the int8 backward)."""
+    widths = [f, *HIDDEN]
+    hidden = 2 * sum(i * o for i, o in zip(widths[:-1], widths[1:]))  # one pass
+    hidden_dh = 2 * sum(i * o for i, o in zip(widths[1:-1], widths[2:]))
+    head = 2 * widths[-1] * (num_actions + 1)
+    forward, backward = hidden + head, hidden + 2 * head + hidden_dh
+    ops = {"none": {"bf16": forward + backward},
+           "int8fwd": {"int8": forward, "bf16": backward},
+           "int8": {"int8": forward + hidden + hidden_dh, "bf16": 2 * head}}[quant]
+    n_params = sum(i * o + o for i, o in zip(widths, [*widths[1:], num_actions])) + widths[-1] + 1
+    nbytes = rows * (f * 2 + 5 * 4) + n_params * (4 + 4)
+    return bound(nbytes, {t: rows * n for t, n in ops.items()})
 
 
 def capture_first_minibatch():
@@ -392,14 +505,17 @@ def capture_first_minibatch():
     return store, lambda: setattr(ppo, "fused_ppo_grads_fm", fused_ppo_grads_fm)
 
 
-def train(env_config: EnvConfig, cfg: PPOConfig, updates: int, label: str, card: str):
+def train(env_config: EnvConfig, cfg: PPOConfig, updates: int, label: str, card: str,
+          phase: int = 10):
     """``updates`` train steps from ``init_fn(0)`` through the trainer's
-    entry points.  Raises unless K1 serves, every env advanced
+    entry points, the counts set to 0 just before and read just after.
+    Raises unless the configured kernel serves, every env advanced
     ``updates * rollout_length`` frames, the metrics are finite and the
     params moved.  Returns (runner, train_step, launches by kernel,
     env-steps/s)."""
     init_fn, train_step, _ = make_ppo_trainer(PikaZoo(env_config), cfg, device="cuda")
-    if train_step.provenance["fused_update"] != "fm":
+    want = "row" if cfg.fused_update == "on" else "fm"
+    if train_step.provenance["fused_update"] != want:
         raise AssertionError(f"{label}: update served by {train_step.provenance}")
     runner = init_fn(0)
     start = runner.env_state.step_count.clone()
@@ -413,7 +529,8 @@ def train(env_config: EnvConfig, cfg: PPOConfig, updates: int, label: str, card:
         metrics.append(m)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"fused_ppo_grads_fm": fused_ppo_grads_fm.launches,
+    launches = {"fused_ppo_grads_fm": dict(fused_ppo_grads_fm.launches_by_mode),
+                "fused_ppo_grads": fused_ppo_grads.launches,
                 "landing_sims_batched": predict_cuda.landing_sims_batched.launches,
                 "fused_rollout": fused_rollout.launches}
     frames = updates * cfg.rollout_length
@@ -429,14 +546,25 @@ def train(env_config: EnvConfig, cfg: PPOConfig, updates: int, label: str, card:
         raise AssertionError(f"{label}: the params did not move")
     rate = updates * cfg.rollout_length * cfg.num_envs / seconds
     last = dict(zip(metrics[-1]._fields[:7], values[-1].tolist()))
-    print(f"phase 10 {label}: B={cfg.num_envs} x {frames} frames in {updates} "
+    print(f"phase {phase} {label}: B={cfg.num_envs} x {frames} frames in {updates} "
           f"update(s), {seconds:.3f} s = {rate:.0f} env-steps/s (train-step wall), "
           f"every step_count +{frames}, params moved (max |change| {moved:.3e}), "
           f"launches {launches}, last update {json.dumps(last)} [{card}]")
     return runner, train_step, launches, rate
 
 
-def time_learner_phases(runner, train_step, cfg: PPOConfig, card: str):
+def expect_launches(label: str, launches, k1_mode: str = "", k1=0, k4=0, landing=0):
+    """The run launched exactly ``k1`` K1 calls, all in ``k1_mode``, ``k4`` K4
+    calls and ``landing`` landing kernels, and no fused rollout."""
+    by_mode = launches["fused_ppo_grads_fm"]
+    others = {m: n for m, n in by_mode.items() if m != k1_mode and n}
+    if (by_mode.get(k1_mode, 0) != k1 or others or launches["fused_ppo_grads"] != k4
+            or launches["landing_sims_batched"] != landing or launches["fused_rollout"]):
+        raise AssertionError(f"{label}: launches {launches}, want {k1} K1 in mode "
+                             f"{k1_mode or '-'}, {k4} K4, {landing} landing, no other")
+
+
+def time_learner_phases(runner, train_step, cfg: PPOConfig, card: str, phase: int = 10):
     """CUDA-event ms of one more update, phase by phase, driven through the
     trainer's phase attributes: rollout, GAE, update."""
     events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -455,9 +583,10 @@ def time_learner_phases(runner, train_step, cfg: PPOConfig, card: str):
     events[3].synchronize()
     rollout, gae, update = (events[i].elapsed_time(events[i + 1]) for i in range(3))
     total = rollout + gae + update
-    print(f"phase 10 update phases (CUDA events): rollout {rollout:.1f} ms, GAE "
+    kernel = "K4" if cfg.fused_update == "on" else f"K1 {fused_update.mode_name(cfg.update_quant, cfg.update_bwd_bf16)}"
+    print(f"phase {phase} update phases (CUDA events): rollout {rollout:.1f} ms, GAE "
           f"{gae:.2f} ms, update {update:.1f} ms ({cfg.update_epochs * cfg.num_minibatches}"
-          f" K1 calls); rollout share {rollout / total:.1%} [{card}]")
+          f" {kernel} calls); rollout share {rollout / total:.1%} [{card}]")
 
 
 def main() -> int:
@@ -493,9 +622,15 @@ def main() -> int:
         # Interleaved: plain, kernel, kernel, plain.
         p1, k1, k2, p2 = (cuda_ms(plain, 3), cuda_ms(kernel, 50),
                           cuda_ms(kernel, 50), cuda_ms(plain, 3))
-        timed[name] = (min(k1, k2), min(p1, p2))
+        # Bound: 4 int32 inputs read and 7 outputs written once; every lane's
+        # loop iterations, counted on one more plain call.
+        _, lanes = count_landing_iterations(plain)
+        k2_bound = bound(11 * 4 * AI_BATCH,
+                         {"int32": int(lanes.sum()) * LANDING_ITERATION_OPS})
+        timed[name] = (min(k1, k2), min(p1, p2), k2_bound)
         print(f"phase 3 time [{name}] B={AI_BATCH}: kernel {k1:.4f} / {k2:.4f} ms, "
-              f"plain {p1:.3f} / {p2:.3f} ms [{card}]")
+              f"plain {p1:.3f} / {p2:.3f} ms; bound {k2_bound[0]:.5f} ms by "
+              f"{k2_bound[1]} ({int(lanes.sum())} lane iterations) [{card}]")
 
     # Phase 4: main path, rule-AI self-play; every frame launches the kernel.
     ai_env = PikaZoo(EnvConfig(auto_reset=True, is_player1_computer=True,
@@ -566,16 +701,21 @@ def main() -> int:
                              f"{calls} calls, {landing_launches} landing launches")
     print(f"phase 8 launches: fused_rollout {fused_launches} in {calls} calls, "
           f"landing_sims_batched {landing_launches}")
-    fused_ms, fused_plain_ms = time_fused("AI self-play", AI_CONFIG, ai_state, card)
+    fused_ms, fused_plain_ms, fused_bound = time_fused("AI self-play", AI_CONFIG,
+                                                       ai_state, card)
     time_fused("random actions", EnvConfig(), random_state, card)
 
     # Phase 9: K1 vs its plain version on the card, full width and ragged.
+    plain_fm = fused_update.fused_ppo_grads_fm_plain
     full = k1_inputs(*K1_FULL, "tanh", 21)
-    k1_err = compare_k1("full width", full, "tanh", card)
-    k1_err = max(k1_err, compare_k1("ragged", k1_inputs(3, 1000, "relu", 22), "relu",
-                                    card))
-    k1_ms, k1_plain_ms = time_k1(full, "tanh", card)
-    del full
+    tanh_kw = dict(K1_KW, activation="tanh")
+    k1_err = compare_grads("K1 [full width]", fused_ppo_grads_fm, plain_fm, full, tanh_kw,
+                           BF16_TOL, card, 9)
+    k1_err = max(k1_err, compare_grads(
+        "K1 [ragged]", fused_ppo_grads_fm, plain_fm, k1_inputs(3, 1000, "relu", 22),
+        dict(K1_KW, activation="relu"), BF16_TOL, card, 9))
+    k1_ms, k1_plain_ms = time_grads("K1 T=32 N=131072", fused_ppo_grads_fm, plain_fm, full,
+                                    tanh_kw, card, 9)
 
     # Phase 10: the learner through its entry points at full width.  The
     # symmetric self-play run is the main path of K1; its first minibatch is
@@ -586,54 +726,121 @@ def main() -> int:
             EnvConfig(auto_reset=True), LEARNER, LEARNER_UPDATES, "self-play", card)
     finally:
         restore()
-    k1_launches = learner_launches["fused_ppo_grads_fm"]
-    want = LEARNER_UPDATES * LEARNER.update_epochs * LEARNER.num_minibatches
-    if learner_launches != {"fused_ppo_grads_fm": want, "landing_sims_batched": 0,
-                            "fused_rollout": 0}:
-        raise AssertionError(f"self-play: launches {learner_launches}, want {want} "
-                             "K1 and no other")
+    k1_launches = learner_launches["fused_ppo_grads_fm"]["none"]
+    expect_launches("self-play", learner_launches, "none",
+                    k1=LEARNER_UPDATES * LEARNER.update_epochs * LEARNER.num_minibatches)
     args, kw = first[0]
-    k1_err = max(k1_err, compare_k1("first live minibatch of update 1", args,
-                                    kw["activation"], card, phase=10))
+    k1_err = max(k1_err, compare_grads("K1 [first live minibatch of update 1]",
+                                       fused_ppo_grads_fm, plain_fm, args, kw, BF16_TOL,
+                                       card, 10))
     time_learner_phases(runner, train_step, LEARNER, card)
     del runner, train_step, first, args
     _, _, vs_ai, _ = train(EnvConfig(winning_score=15, auto_reset=True,
                                      is_player2_computer=True),
                            VS_AI, 1, "vs rule AI, learner seat 1", card)
-    if (vs_ai["landing_sims_batched"] != VS_AI.rollout_length
-            or vs_ai["fused_ppo_grads_fm"] != VS_AI.update_epochs * VS_AI.num_minibatches
-            or vs_ai["fused_rollout"]):
-        raise AssertionError(f"vs rule AI: launches {vs_ai}")
+    expect_launches("vs rule AI", vs_ai, "none",
+                    k1=VS_AI.update_epochs * VS_AI.num_minibatches,
+                    landing=VS_AI.rollout_length)
 
-    ms, plain_ms = timed[f"AI self-play frame {HARVEST_FRAME}"]
+    # Phase 11: K4 and K1's other modes vs their plain versions on the card:
+    # full width, ragged, and for int8 one dynamic-scale cell of 3000 columns
+    # (a frame whose width is no multiple of 128 is one cell).
+    plain_rm = fused_update.fused_ppo_grads_rm_plain
+    rows = rows_of(full)
+    k4_err = compare_grads("K4 [full width]", fused_ppo_grads, plain_rm, rows, tanh_kw,
+                           BF16_TOL, card, 11)
+    k4_err = max(k4_err, compare_grads(
+        "K4 [ragged]", fused_ppo_grads, plain_rm, rows_of(k1_inputs(1, 3000, "relu", 23)),
+        dict(K1_KW, activation="relu"), BF16_TOL, card, 11))
+    k4_ms, k4_plain_ms = time_grads(f"K4 M={K1_FULL[0] * K1_FULL[1]}", fused_ppo_grads,
+                                    plain_rm, rows, tanh_kw, card, 11)
+    del rows
+    ragged_tanh = k1_inputs(3, 1000, "tanh", 24)
+    mode_stats = {}
+    for name, mode_kw in K1_MODES.items():
+        kw = dict(tanh_kw, **mode_kw)
+        cases = [("full width", full, kw)]
+        if name == "bwd_bf16":
+            chains_apart(full, tanh_kw, card)
+            cases.append(("ragged", k1_inputs(3, 1000, "relu", 25),
+                          dict(kw, activation="relu")))
+        else:
+            cases.append(("ragged", ragged_tanh, kw))
+        if name == "int8":
+            if fused_update.cell_cols(3000) != 3000:
+                raise AssertionError("N=3000 is not one cell")
+            cases.append(("one cell of 3000 columns", k1_inputs(2, 3000, "tanh", 26), kw))
+        if name == "int8fwd":
+            # int8fwd runs the stock bf16 backward, so it takes bwd_bf16 too.
+            cases.append(("full width, bf16 backward chain", full, dict(kw, bwd_bf16=True)))
+        m_err = max(compare_grads(f"K1 {name} [{case}]", fused_ppo_grads_fm, plain_fm,
+                                  args, case_kw, BF16_TOL, card, 11)
+                    for case, args, case_kw in cases)
+        m_ms, m_plain_ms = time_grads(f"K1 {name} T=32 N=131072", fused_ppo_grads_fm,
+                                      plain_fm, full, kw, card, 11)
+        mode_stats[name] = (m_err, m_ms, m_plain_ms)
+        del cases
+    del full, ragged_tanh
+
+    # Phase 12: the learner with K4, then with each of K1's other modes (the
+    # int8 run with the minibatch shuffle), each run's counts from 0.
+    cfg = dataclasses.replace(LEARNER, fused_update="on")
+    runner, train_step, k4_run, _ = train(EnvConfig(auto_reset=True), cfg, K4_UPDATES,
+                                          "self-play, K4", card, phase=12)
+    k4_launches = k4_run["fused_ppo_grads"]
+    expect_launches("self-play, K4", k4_run,
+                    k4=K4_UPDATES * cfg.update_epochs * cfg.num_minibatches)
+    time_learner_phases(runner, train_step, cfg, card, phase=12)
+    del runner, train_step
+    mode_launches = {}
+    for name, cfg in (
+            ("int8", dataclasses.replace(LEARNER, fused_update="fm", update_quant="int8",
+                                         shuffle_minibatches=True)),
+            ("int8fwd", dataclasses.replace(LEARNER, fused_update="fm",
+                                            update_quant="int8fwd")),
+            ("bwd_bf16", dataclasses.replace(LEARNER, fused_update="fm",
+                                             update_bwd_bf16=True))):
+        runner, train_step, run, _ = train(EnvConfig(auto_reset=True), cfg, 1,
+                                           f"self-play, K1 {name}", card, phase=12)
+        expect_launches(f"self-play, K1 {name}", run, name,
+                        k1=cfg.update_epochs * cfg.num_minibatches)
+        mode_launches[name] = run["fused_ppo_grads_fm"][name]
+        if name == "int8":
+            time_learner_phases(runner, train_step, cfg, card, phase=12)
+        del runner, train_step
+
+    ms, plain_ms, k2_bound = timed[f"AI self-play frame {HARVEST_FRAME}"]
+    rows = K1_FULL[0] * K1_FULL[1]
+    entries = [
+        ("landing_sims_batched", "landing.cu", "pikazoo_tpu/core/predict_pallas.py:72",
+         launches, err, ms, plain_ms, k2_bound),
+        ("fused_rollout", "fused_step.cu", "pikazoo_tpu/core/fused_step.py:200",
+         fused_launches, fused_err, fused_ms, fused_plain_ms, fused_bound),
+        ("fused_ppo_grads_fm", "fused_update.cu", "pikazoo_tpu/train/fused_update.py:504",
+         k1_launches, k1_err, k1_ms, k1_plain_ms, grad_bound(rows)),
+    ]
+    for name in K1_MODES:
+        m_err, m_ms, m_plain = mode_stats[name]
+        entries.append((f"fused_ppo_grads_fm[{name}]", "fused_update.cu",
+                        "pikazoo_tpu/train/fused_update.py:504", mode_launches[name],
+                        m_err, m_ms, m_plain,
+                        grad_bound(rows, name if name != "bwd_bf16" else "none")))
+    entries.append(("fused_ppo_grads", "fused_update_rm.cu",
+                    "pikazoo_tpu/train/fused_update.py:651", k4_launches, k4_err, k4_ms,
+                    k4_plain_ms, grad_bound(rows)))
     print(json.dumps({"kernels": [{
-        "name": "landing_sims_batched",
+        "name": name,
         "route": "cuda",
-        "source": "pikazoo_tpu_torch/csrc/landing.cu",
-        "replaces": "pikazoo_tpu/core/predict_pallas.py:72",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "fused_rollout",
-        "route": "cuda",
-        "source": "pikazoo_tpu_torch/csrc/fused_step.cu",
-        "replaces": "pikazoo_tpu/core/fused_step.py:200",
-        "launches": fused_launches,
-        "max_abs_err": fused_err,
-        "ms": fused_ms,
-        "plain_ms": fused_plain_ms,
-    }, {
-        "name": "fused_ppo_grads_fm",
-        "route": "cuda",
-        "source": "pikazoo_tpu_torch/csrc/fused_update.cu",
-        "replaces": "pikazoo_tpu/train/fused_update.py:504",
-        "launches": k1_launches,
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
-        "plain_ms": k1_plain_ms,
-    }]}))
+        "source": f"pikazoo_tpu_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": n,
+        "max_abs_err": e,
+        "ms": t,
+        "plain_ms": tp,
+        "bound_ms": b[0],
+        "bound_by": b[1],
+        "library_ms": None,   # no one PyTorch call computes any of these functions
+    } for name, source, replaces, n, e, t, tp, b in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,0 +1,252 @@
+// Device code shared by the fused clipped-PPO gradient kernels: K1
+// (fused_update.cu, feature-major, merged head) and K4 (fused_update_rm.cu,
+// row-major, split heads).  Both hold a tile of columns (K1) or rows (K4) in
+// shared memory with the batch on the fast axis, so the products, the
+// bias-gradient row sums and the per-column loss are the same code.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace ppo {
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+typedef wmma::row_major RM;
+typedef wmma::col_major CM;
+
+#define KCHUNK 16  // products summed on the tensor cores before a rounded add
+
+// ---------------------------------------------------------------------------
+// D (M x N) = [D +] A (M x K) . B (K x N), bf16 operands, f32 accumulation.
+// A, B in the given layouts and leading dims (either in shared or global
+// memory); D row-major f32.  M, N, K multiples of 16.  A warp owns a strip of
+// up to four 16x16 output tiles, so each A fragment is loaded once per strip.
+template <typename LA>
+__device__ __forceinline__ const bf16* a_at(const bf16* A, int r, int c, int ld) {
+    return std::is_same<LA, wmma::row_major>::value ? A + (size_t)r * ld + c
+                                                     : A + (size_t)c * ld + r;
+}
+
+template <typename LA, typename LB, bool ACC>
+__device__ void gemm(int M, int N, int K, const bf16* A, int lda,
+                     const bf16* B, int ldb, float* D, int ldd) {
+    typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+    const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+    const int mt = M >> 4, nstrips = (N + 63) >> 6;
+    for (int job = warp; job < mt * nstrips; job += nwarps) {
+        const int tm = job / nstrips, n0 = (job % nstrips) * 64;
+        const int nt = min(4, (N - n0) >> 4);
+        Acc acc[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            if (j < nt) {
+                float* d = D + (size_t)(tm * 16) * ldd + n0 + j * 16;
+                if (ACC) wmma::load_matrix_sync(acc[j], d, ldd, wmma::mem_row_major);
+                else wmma::fill_fragment(acc[j], 0.0f);
+            }
+        }
+        for (int k0 = 0; k0 < K; k0 += KCHUNK) {
+            // The tensor cores' f32 accumulation does not round to nearest:
+            // each chunk of products is summed into a fresh fragment and
+            // added to the running sum with round-to-nearest adds.
+            Acc part[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) wmma::fill_fragment(part[j], 0.0f);
+            for (int k = k0; k < min(K, k0 + KCHUNK); k += 16) {
+                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
+                wmma::load_matrix_sync(a, a_at<LA>(A, tm * 16, k, lda), lda);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    if (j < nt) {
+                        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
+                        // B (k, n): row-major at k*ldb + n, col-major at n*ldb + k.
+                        wmma::load_matrix_sync(b, a_at<LB>(B, k, n0 + j * 16, ldb), ldb);
+                        wmma::mma_sync(part[j], a, b, part[j]);
+                    }
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+#pragma unroll
+                for (int i = 0; i < part[j].num_elements; ++i)
+                    acc[j].x[i] = __fadd_rn(acc[j].x[i], part[j].x[i]);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            if (j < nt)
+                wmma::store_matrix_sync(D + (size_t)(tm * 16) * ldd + n0 + j * 16,
+                                        acc[j], ldd, wmma::mem_row_major);
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// int8 products on the tensor cores: mma.sync m16n8k32, s8 x s8 -> s32.
+//
+// D (M x N) = float(A . B) * scale (S8_STORE) or D += that (S8_ADD), with
+// A (m, k) = A[m * sam + k * sak] and B (k, n) = B[k * sbk + n * sbn] int8
+// in any layout, shared or global.  The int32 sums are exact, so one
+// dequantising multiply per output reproduces an integer product followed
+// by its scale.  M % 16 == 0, N % 8 == 0, K % 4 == 0; k >= K reads as 0.
+// Each thread gathers its fragment four bytes at a time: one 32-bit load
+// where k is the fast axis (stride 1, 4-byte aligned rows), else four byte
+// loads.
+enum { S8_STORE = 0, S8_ADD = 1 };
+
+__device__ __forceinline__ uint32_t pack4(const int8_t* p, int stride, int k, int K) {
+    if (k >= K) return 0u;
+    if (stride == 1) return *reinterpret_cast<const uint32_t*>(p + k);
+    uint32_t v = 0u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        v |= (uint32_t)(uint8_t)p[(size_t)(k + i) * stride] << (8 * i);
+    return v;
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int OUT>
+__device__ void gemm_s8(int M, int N, int K, const int8_t* A, int sam, int sak,
+                        const int8_t* B, int sbk, int sbn, float scale, float* D,
+                        int ldd) {
+    const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+    const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+    const int mt = M >> 4, nstrips = (N + 31) >> 5;
+    for (int job = warp; job < mt * nstrips; job += nwarps) {
+        const int m0 = (job / nstrips) * 16, n0 = (job % nstrips) * 32;
+        const int nt = min(4, (N - n0) >> 3);
+        int acc[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[j][i] = 0;
+        const int8_t* a_lo = A + (size_t)(m0 + g) * sam;
+        const int8_t* a_hi = A + (size_t)(m0 + g + 8) * sam;
+        for (int k0 = 0; k0 < K; k0 += 32) {
+            // Fragment layout of m16n8k32 (PTX ISA): A rows g and g+8, k
+            // tg*4..+3 and 16+tg*4..+3; B column g, the same k.
+            const int ka = k0 + tg * 4, kb = ka + 16;
+            const uint32_t a[4] = {pack4(a_lo, sak, ka, K), pack4(a_hi, sak, ka, K),
+                                   pack4(a_lo, sak, kb, K), pack4(a_hi, sak, kb, K)};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                if (j < nt) {
+                    const int8_t* bp = B + (size_t)(n0 + j * 8 + g) * sbn;
+                    const uint32_t b[2] = {pack4(bp, sbk, ka, K), pack4(bp, sbk, kb, K)};
+                    mma_s8(acc[j], a, b);
+                }
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            if (j < nt) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    // D fragment: rows g (i < 2) and g+8, columns tg*2 + (i & 1).
+                    const int r = m0 + g + (i >> 1) * 8, c = n0 + j * 8 + tg * 2 + (i & 1);
+                    const float v = __fmul_rn((float)acc[j][i], scale);
+                    float* d = D + (size_t)r * ldd + c;
+                    *d = OUT == S8_ADD ? __fadd_rn(*d, v) : v;
+                }
+            }
+        }
+    }
+}
+
+// acc[r] += the sum of row r of a (rows x NCOL) f32 tile with row stride ld:
+// a warp a row, each lane adding NCOL/32 columns, then a butterfly in a fixed
+// order (deterministic).
+template <int NCOL>
+__device__ __forceinline__ void row_sums(const float* tile, int ld, int rows, float* acc) {
+    static_assert(NCOL == 32 || NCOL == 64, "row_sums takes 32 or 64 columns");
+    const int lane = threadIdx.x & 31;
+    for (int r = threadIdx.x >> 5; r < rows; r += blockDim.x >> 5) {
+        float s = tile[r * ld + lane];
+        if (NCOL == 64) s += tile[r * ld + lane + 32];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (lane == 0) acc[r] += s;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The clipped-PPO loss of one column and its gradient w.r.t. the heads.
+// z[r * ld] is head row r before its bias (bias[r]): rows 0..A-1 the logits,
+// row vrow the value.  Writes dlogits[0..A-1] and *dvalue (already scaled
+// by the coefficients and 1/M) and returns the column's 4 loss terms.
+struct LossTerms {
+    float pol, val, ent, kl;
+};
+
+__device__ __forceinline__ LossTerms ppo_column(
+    const float* z, int ld, const float* bias, int A, int vrow, int act, float lpo,
+    float adv, float vold, float tgt, float clip, float neg_inv_m, float ent_scale,
+    float val_scale, float* dlogits, float* dvalue) {
+    float m = -INFINITY;
+    for (int r = 0; r < A; ++r) m = fmaxf(m, z[r * ld] + bias[r]);
+    float sumex = 0.0f;
+    for (int r = 0; r < A; ++r) sumex += expf((z[r * ld] + bias[r]) - m);
+    const float lse = logf(sumex) + m;
+    const float value = z[vrow * ld] + bias[vrow];
+    float plogp = 0.0f, lp_new = 0.0f;
+    for (int r = 0; r < A; ++r) {
+        const float zr = z[r * ld] + bias[r];
+        const float logp = zr - lse;
+        const float pr = expf(zr - m) / sumex;
+        plogp += pr * logp;
+        if (r == act) lp_new = logp;
+    }
+    const float entropy_row = -plogp;
+    const float ratio = expf(lp_new - lpo);
+    const float unclipped = ratio * adv;
+    const float clipped = fminf(fmaxf(ratio, 1.0f - clip), 1.0f + clip) * adv;
+    LossTerms out;
+    out.pol = -fminf(unclipped, clipped);
+    out.ent = entropy_row;
+    const float vclip = vold + fminf(fmaxf(value - vold, -clip), clip);
+    const float e1 = value - tgt, e2 = vclip - tgt;
+    out.val = 0.5f * fmaxf(e1 * e1, e2 * e2);
+    out.kl = (ratio - 1.0f) - logf(ratio);
+
+    const float inside_r = (ratio > 1.0f - clip && ratio < 1.0f + clip) ? 1.0f : 0.0f;
+    const float dmin = (unclipped <= clipped) ? adv : adv * inside_r;
+    const float dlp = neg_inv_m * dmin * ratio;
+    for (int r = 0; r < A; ++r) {
+        const float zr = z[r * ld] + bias[r];
+        const float logp = zr - lse;
+        const float pr = expf(zr - m) / sumex;
+        const float onehot = (r == act) ? 1.0f : 0.0f;
+        dlogits[r] = dlp * (onehot - pr) + ent_scale * pr * (logp + entropy_row);
+    }
+    const float inside_v = (value - vold > -clip && value - vold < clip) ? 1.0f : 0.0f;
+    *dvalue = val_scale * ((e1 * e1 >= e2 * e2) ? e1 : e2 * inside_v);
+    return out;
+}
+
+// out[e] = sum over blocks, in block order, of partial[block][e].
+__global__ void reduce_partials(const float* __restrict__ partial, int blocks,
+                                int stride, float* __restrict__ out) {
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= stride) return;
+    float s = 0.0f;
+    for (int g = 0; g < blocks; ++g) s += partial[(size_t)g * stride + e];
+    out[e] = s;
+}
+
+inline int align128(int x) { return (x + 127) & ~127; }
+
+}  // namespace ppo

@@ -221,14 +221,16 @@ class PikaZoo:
         )
         return state, ts
 
-    def reset(self, key, device="cpu") -> Tuple[EnvState, TimeStep]:
+    def reset(self, key, device="cuda") -> Tuple[EnvState, TimeStep]:
         """Start one game (0-d leaves) from an int seed or 2-word key data,
-        used directly as the env's stream key (like the JAX ``reset``)."""
+        used directly as the env's stream key (like the JAX ``reset``), on
+        ``device`` (the card unless the caller asks for the CPU)."""
         return self._reset_from_keys(key_data(key, device))
 
-    def reset_batch(self, key, batch_size: int, device="cpu"
+    def reset_batch(self, key, batch_size: int, device="cuda"
                     ) -> Tuple[EnvState, TimeStep]:
-        """Start ``batch_size`` independent games on ``device``.  Env i's key
+        """Start ``batch_size`` independent games on ``device`` (the card
+        unless the caller asks for the CPU).  Env i's key
         is ``fold_key(key, i)``, as in the JAX package, so both start from
         identical states.  ``key`` is an int seed (key data ``[0, seed]``, as
         ``jax.random.key(seed)``) or 2-word key data."""

@@ -1,31 +1,49 @@
-"""The fused clipped-PPO minibatch gradient, feature-major (K1).
+"""The fused clipped-PPO minibatch gradient: feature-major (K1) and row-major
+(K4).
 
-Counterpart of ``pikazoo_tpu.train.fused_update.fused_ppo_grads_fm``: the
-forward MLP, the clipped-PPO loss, the hand-written backward, the weight and
-bias gradients and the four loss sums of one minibatch, with the minibatch in
-its ``(T, 2B)`` shape and the observations feature-major ``(T, F, 2B)`` bf16,
-as the rollout stores them.
+Counterparts of ``pikazoo_tpu.train.fused_update.fused_ppo_grads_fm`` (K1)
+and ``fused_ppo_grads`` (K4): the forward MLP, the clipped-PPO loss, the
+hand-written backward, the weight and bias gradients and the four loss sums
+of one minibatch.  K1 takes the minibatch in its ``(T, 2B)`` shape with the
+observations feature-major ``(T, F, 2B)`` bf16, as the rollout stores them;
+K4 takes it flattened to rows, observations ``(M, F)`` bf16.
 
-A CUDA minibatch runs the hand-written Hopper kernel ``csrc/fused_update.cu``
-(built by ``pikazoo_tpu_torch._build`` at first use); a CPU one runs the
-plain PyTorch version, :func:`fused_ppo_grads_fm_plain`.  On CUDA the kernel
-launches or the call raises: there is no fallback.
+A CUDA minibatch runs a hand-written Hopper kernel (``csrc/fused_update.cu``
+for K1, ``csrc/fused_update_rm.cu`` for K4, built by
+``pikazoo_tpu_torch._build`` at first use); a CPU one runs the plain PyTorch
+version (:func:`fused_ppo_grads_fm_plain`, :func:`fused_ppo_grads_rm_plain`).
+On CUDA the kernel launches or the call raises: there is no fallback.
 
-The arithmetic is the TPU kernel's bf16 path: bf16 operands with f32
-accumulation in every product; bias add and activation in f32, then one
-round to bf16, and only that bf16 activation feeds the next layer and the
-activation derivative (``1 - h*h`` on ``float(h_bf16)``); a merged (H, A+1)
-head whose row A is the value; ``dheads`` and ``dpre`` rounded to bf16 for
-the products while the bias gradients sum their f32 values; f32 loss sums.
-The int8 / int8fwd quantised modes and the bf16 backward chain of the JAX
-kernel are not ported.
+K1's bf16 mode (``quant="none"``): bf16 operands with f32 accumulation in
+every product; bias add and activation in f32, then one round to bf16, and
+only that bf16 activation feeds the next layer and the activation derivative
+(``1 - h*h`` on ``float(h_bf16)``); a merged (H, A+1) head whose row A is the
+value; ``dheads`` and ``dpre`` rounded to bf16 for the products while the
+bias gradients sum their f32 values; f32 loss sums.  Its other modes, as the
+JAX kernel's branches:
+
+- ``bwd_bf16=True``: the hidden gradient chain in bf16 arithmetic
+  (``dh_b = bf16(dot)``, ``dpre_b = dh_b * (1 - h*h)`` op by op in bf16, bias
+  grads the f32 sums of ``dpre_b``).
+- ``quant="int8fwd"``: the forward products in int8 (weights quantised per
+  tensor from the f32 params, activations with the static scale 127), the
+  bf16 of each f32 activation kept for the stock bf16 backward, which uses the
+  bf16 weights.
+- ``quant="int8"``: the forward as ``int8fwd`` but the int8 activations are
+  kept; the two head products of the backward stay bf16, the hidden chain
+  quantises ``dpre`` with a dynamic max-abs scale per frame and column cell
+  (``cell_cols``), and the bias grads sum the un-quantised ``dpre``.
+
+K4 differs from K1's bf16 mode in three places: the activation derivative is
+taken from the f32 activation, the policy and value heads are two products
+(``dh`` is their f32 sum), and rows are tiled instead of frames x columns.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -33,11 +51,22 @@ from pikazoo_tpu_torch import _build
 from pikazoo_tpu_torch.train.networks import BF16, Params, dense_layers
 
 SOURCES = ("fused_update.cu",)
-COLS = 64        # env columns per tile of the kernel (csrc/fused_update.cu)
-HEAD_PAD = 32    # the merged head's A+1 rows, padded
-MAX_LAYERS = 4   # hidden layers the kernel takes
-MAX_WIDTH = 256  # widest hidden layer the kernel takes
-PLAIN_COLS = 16384  # columns per chunk of the plain version
+SOURCES_RM = ("fused_update_rm.cu",)
+COLS = 64        # env columns per tile of K1 (csrc/fused_update.cu)
+ROWS_RM = 32     # rows per tile of K4 (csrc/fused_update_rm.cu)
+HEAD_PAD = 32    # K1's merged head: A+1 rows, padded
+HEAD_PAD_RM = 48  # K4's head: the policy rows padded to 32, then the value row
+VALUE_ROW_RM = 32
+MAX_LAYERS = 4   # hidden layers the kernels take
+MAX_WIDTH = 256  # widest hidden layer the kernels take
+PLAIN_COLS = 16384  # columns (rows for K4) per chunk of the plain versions
+QUANT_MODES = ("none", "int8", "int8fwd")
+QUANT_CODE = {"none": 0, "int8fwd": 1, "int8": 2}
+CELL_COLS = 1024    # the widest column cell of the int8 mode's dynamic scale
+S_IN = 1.0 / 127.0  # the static dequant scale of int8 activations
+# The widest int8 cell whose integer-valued f32 products are exact:
+# 1024 * 127**2 < 2**24.  Wider cells take their dW products in float64.
+EXACT_F32_CELL = 1024
 
 
 def _loss_vector(sums: torch.Tensor, inv_m: float, value_coef: float,
@@ -49,17 +78,140 @@ def _loss_vector(sums: torch.Tensor, inv_m: float, value_coef: float,
     return torch.stack([total, policy, value, entropy, kl])
 
 
-def _grads_dict(names, dw, db, dwpv, dbpv, num_actions: int) -> Dict[str, torch.Tensor]:
-    """Hidden grads plus the merged head's (H, A+1) / (A+1,) grads -> a dict
-    keyed like the params, the head split back into policy and value."""
+def _grads_dict(names, dw, db, dwp, dbp, dwv, dbv) -> Dict[str, torch.Tensor]:
+    """Hidden grads plus the policy and value heads' -> a dict keyed like
+    the params."""
     grads = {}
     for name, w, b in zip(names, dw, db):
         grads[f"{name}.kernel"], grads[f"{name}.bias"] = w, b
-    grads[f"{names[-2]}.kernel"] = dwpv[:, :num_actions]
-    grads[f"{names[-2]}.bias"] = dbpv[:num_actions]
-    grads[f"{names[-1]}.kernel"] = dwpv[:, num_actions:num_actions + 1]
-    grads[f"{names[-1]}.bias"] = dbpv[num_actions:num_actions + 1]
+    grads[f"{names[-2]}.kernel"], grads[f"{names[-2]}.bias"] = dwp, dbp
+    grads[f"{names[-1]}.kernel"], grads[f"{names[-1]}.bias"] = dwv, dbv
     return grads
+
+
+def _merged_grads(names, dw, db, dwpv, dbpv, num_actions: int):
+    """The merged head's (H, A+1) / (A+1,) grads split back into the policy
+    and value heads."""
+    A = num_actions
+    return _grads_dict(names, dw, db, dwpv[:, :A], dbpv[:A],
+                       dwpv[:, A:A + 1], dbpv[A:A + 1])
+
+
+def pick_tile(n: int, want: int, floor: int = 8) -> int:
+    """The JAX wrapper's ``_pick_tile``: halve ``want`` down to ``floor``
+    until it divides ``n``; ``n`` itself when none does."""
+    t = want
+    while t > floor and n % t != 0:
+        t //= 2
+    return t if n % t == 0 else n
+
+
+def cell_cols(n: int) -> int:
+    """Columns of one cell of the int8 mode's dynamic scale for ``n``
+    columns, as the JAX kernel's grid cuts them: 1024 at the learner's
+    width, the whole ``n`` when ``n`` is not a multiple of 128."""
+    return pick_tile(n, CELL_COLS, floor=128)
+
+
+def check_mode(quant: str, activation: str, num_layers: int) -> None:
+    """The JAX wrapper's checks of the precision mode."""
+    if quant not in QUANT_MODES:
+        raise ValueError(f"unknown quant mode {quant!r}")
+    if quant != "none" and activation != "tanh":
+        raise ValueError("int8 quant requires activation='tanh' (the static "
+                         "forward scale assumes [-1, 1] outputs)")
+    if quant != "none" and num_layers + 1 > 8:
+        raise ValueError(f"int8 quant supports at most 7 hidden layers "
+                         f"({num_layers} given)")
+
+
+def mode_name(quant: str, bwd_bf16: bool) -> str:
+    """The key of ``fused_ppo_grads_fm.launches_by_mode``: the int8 mode has
+    its own backward, so ``bwd_bf16`` names a mode only beside the others."""
+    if quant == "int8" or not bwd_bf16:
+        return quant
+    return "bwd_bf16" if quant == "none" else f"{quant}+bwd_bf16"
+
+
+def quantize_weights(w: List[torch.Tensor], num_layers: int):
+    """Per-tensor symmetric int8 of the hidden kernels and of the merged
+    (H, A+1) head, from the f32 params (not their bf16 casts):
+    ``(int8 tensors, scales (L+1,) f32)`` with ``w ~ q * scale``."""
+    L = num_layers
+
+    def qw(t):
+        t = t.float()
+        s = torch.clamp(t.abs().max(), min=1e-30) / 127.0
+        return torch.round(t / s).to(torch.int8), s
+
+    wpv = torch.cat([w[L].float(), w[L + 1].float()], dim=1)
+    qs = [qw(t) for t in [*w[:L], wpv]]
+    return [q for q, _ in qs], torch.stack([s for _, s in qs])
+
+
+def _q127(v: torch.Tensor) -> torch.Tensor:
+    """int8 of a [-1, 1] value with the static scale 127, round half to even,
+    as an integer-valued float32."""
+    return torch.clamp(torch.round(v * 127.0), -127.0, 127.0)
+
+
+def _act(x: torch.Tensor, activation: str) -> torch.Tensor:
+    return torch.relu(x) if activation == "relu" else torch.tanh(x)
+
+
+def _dact(h: torch.Tensor, activation: str) -> torch.Tensor:
+    """The derivative through the post-activation value, in ``h``'s type."""
+    return (h > 0).to(h.dtype) if activation == "relu" else 1.0 - h * h
+
+
+def _loss_and_dheads(logits, value, action, lpo, adv, vold, tgt, *, inv_m,
+                     clip_eps, value_coef, entropy_coef):
+    """The clipped-PPO loss of a chunk of columns, feature-major: logits
+    (A, C), value / per-row inputs (C,).  Returns (the 4 loss sums,
+    dlogits (A, C), dvalue (C,)), the JAX kernels' formulas."""
+    f32 = torch.float32
+    rows = torch.arange(logits.shape[0], device=logits.device)[:, None]
+    m = logits.amax(dim=0)
+    ex = torch.exp(logits - m)
+    sumex = ex.sum(dim=0)
+    logp_all = logits - (torch.log(sumex) + m)
+    p = ex / sumex
+    onehot = (rows == action).to(f32)
+    lp_new = (logp_all * onehot).sum(dim=0)
+    ratio = torch.exp(lp_new - lpo)
+    unclipped = ratio * adv
+    clipped = torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps) * adv
+    entropy_row = -(p * logp_all).sum(dim=0)
+    vclip = vold + torch.clamp(value - vold, -clip_eps, clip_eps)
+    e1 = value - tgt
+    e2 = vclip - tgt
+    sums = torch.stack([
+        -torch.minimum(unclipped, clipped).sum(),
+        0.5 * torch.maximum(e1 * e1, e2 * e2).sum(),
+        entropy_row.sum(),
+        ((ratio - 1.0) - torch.log(ratio)).sum()])
+    inside_r = ((ratio > 1.0 - clip_eps) & (ratio < 1.0 + clip_eps)).to(f32)
+    dmin = torch.where(unclipped <= clipped, adv, adv * inside_r)
+    dlp = -inv_m * dmin * ratio
+    dlogits = (dlp * (onehot - p)
+               + (entropy_coef * inv_m) * p * (logp_all + entropy_row))
+    inside_v = ((value - vold > -clip_eps) & (value - vold < clip_eps)).to(f32)
+    dvalue = (value_coef * inv_m) * torch.where(e1 * e1 >= e2 * e2, e1,
+                                                e2 * inside_v)
+    return sums, dlogits, dvalue
+
+
+def _cell_dot(below: torch.Tensor, dp_q: torch.Tensor, scale: torch.Tensor,
+              cell: int) -> torch.Tensor:
+    """sum over cells j of float(below_j . dp_q_j^T) * scale[j]: the int8
+    mode's dW, one exact integer product per cell (below (K, C_chunk),
+    dp_q (H, C_chunk) integer-valued, C_chunk a multiple of ``cell``)."""
+    k, n = below.shape
+    dt = torch.float32 if cell <= EXACT_F32_CELL else torch.float64
+    b = below.to(dt).reshape(k, n // cell, cell).transpose(0, 1)
+    d = dp_q.to(dt).reshape(dp_q.shape[0], n // cell, cell).permute(1, 2, 0)
+    prod = torch.bmm(b, d).float()                          # (cells, K, H)
+    return (prod * scale[:, None, None]).sum(dim=0)
 
 
 def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
@@ -68,14 +220,18 @@ def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
                              target: torch.Tensor, *, num_actions: int,
                              activation: str, clip_eps: float,
                              value_coef: float, entropy_coef: float,
-                             total_rows: int = 0
+                             total_rows: int = 0, quant: str = "none",
+                             bwd_bf16: bool = False
                              ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """The plain PyTorch version of :func:`fused_ppo_grads_fm`, on any
     device: the same casts and the same hand-written backward, transcribed
-    from ``_fm_kernel``.  Products run in float32 on bf16-valued operands
-    (exact products, f32 sums).  It walks the minibatch a frame and
-    ``PLAIN_COLS`` columns at a time, so it fits on the card at full width."""
+    from ``_fm_kernel``'s branches.  Products run in float32 on bf16-valued
+    or integer-valued operands (exact products, f32 sums; integer sums
+    exact, see ``EXACT_F32_CELL``).  It walks the minibatch a frame and
+    ``PLAIN_COLS`` columns at a time (whole cells in the int8 mode), so it
+    fits on the card at full width."""
     names, L, w, b = dense_layers(params)
+    check_mode(quant, activation, L)
     f32 = torch.float32
     t_mb, n = action.shape
     inv_m = 1.0 / (total_rows or t_mb * n)
@@ -84,10 +240,13 @@ def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
     bf = [x.float() for x in b[:L]]
     wpv = torch.cat([w[L], w[L + 1]], dim=1).to(BF16).float()   # (H, A+1)
     bpv = torch.cat([b[L], b[L + 1]]).float()                   # (A+1,)
-    rows = torch.arange(A, device=obs.device)[:, None]
-
-    def dact(h):
-        return (h > 0).to(f32) if activation == "relu" else 1.0 - h * h
+    if quant != "none":
+        wq, sw = quantize_weights(w, L)
+        wq = [q.float() for q in wq]                            # integer-valued
+    cell = cell_cols(n)
+    chunk = cell * max(1, PLAIN_COLS // cell) if quant == "int8" else PLAIN_COLS
+    loss_kw = dict(inv_m=inv_m, clip_eps=clip_eps, value_coef=value_coef,
+                   entropy_coef=entropy_coef)
 
     dw = [torch.zeros_like(x) for x in wf]
     db = [torch.zeros_like(x) for x in bf]
@@ -95,77 +254,172 @@ def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
     dbpv = torch.zeros_like(bpv)
     sums = torch.zeros(4, dtype=f32, device=obs.device)
     for t in range(t_mb):
-        for c0 in range(0, n, PLAIN_COLS):
-            cols = slice(c0, min(n, c0 + PLAIN_COLS))
+        for c0 in range(0, n, chunk):
+            cols = slice(c0, min(n, c0 + chunk))
             x = obs[t, :, cols].float()
             hs = []
-            h = x
-            for l in range(L):
-                pre = torch.matmul(wf[l].t(), h) + bf[l][:, None]
-                h = (torch.relu(pre) if activation == "relu"
-                     else torch.tanh(pre)).to(BF16).float()
-                hs.append(h)
-            heads = torch.matmul(wpv.t(), h) + bpv[:, None]       # (A+1, C)
-            logits, value = heads[:A], heads[A]
-            m = logits.amax(dim=0)
-            ex = torch.exp(logits - m)
-            sumex = ex.sum(dim=0)
-            logp_all = logits - (torch.log(sumex) + m)
-            p = ex / sumex
-            onehot = (rows == action[t, cols]).to(f32)
-            lp_new = (logp_all * onehot).sum(dim=0)
-
-            lpo, adv = logp_old[t, cols], adv_norm[t, cols]
-            vold, tgt = value_old[t, cols], target[t, cols]
-            ratio = torch.exp(lp_new - lpo)
-            unclipped = ratio * adv
-            clipped = torch.clamp(ratio, 1.0 - clip_eps, 1.0 + clip_eps) * adv
-            entropy_row = -(p * logp_all).sum(dim=0)
-            vclip = vold + torch.clamp(value - vold, -clip_eps, clip_eps)
-            e1 = value - tgt
-            e2 = vclip - tgt
-            sums += torch.stack([
-                -torch.minimum(unclipped, clipped).sum(),
-                0.5 * torch.maximum(e1 * e1, e2 * e2).sum(),
-                entropy_row.sum(),
-                ((ratio - 1.0) - torch.log(ratio)).sum()])
-
-            inside_r = ((ratio > 1.0 - clip_eps) & (ratio < 1.0 + clip_eps)).to(f32)
-            dmin = torch.where(unclipped <= clipped, adv, adv * inside_r)
-            dlp = -inv_m * dmin * ratio
-            dlogits = (dlp * (onehot - p)
-                       + (entropy_coef * inv_m) * p * (logp_all + entropy_row))
-            inside_v = ((value - vold > -clip_eps) & (value - vold < clip_eps)).to(f32)
-            dvalue = (value_coef * inv_m) * torch.where(e1 * e1 >= e2 * e2, e1,
-                                                        e2 * inside_v)
+            if quant != "none":
+                # int8 forward: the weight scale rides the bias add; hs holds
+                # the int8 activations ("int8") or bf16(h_f) ("int8fwd").
+                x_q = h_q = _q127(x)
+                for l in range(L):
+                    pre = torch.matmul(wq[l].t(), h_q) * (sw[l] * S_IN) + bf[l][:, None]
+                    h_f = _act(pre, activation)
+                    h_q = _q127(h_f)
+                    hs.append(h_q if quant == "int8" else h_f.to(BF16).float())
+                heads = torch.matmul(wq[L].t(), h_q) * (sw[L] * S_IN) + bpv[:, None]
+            else:
+                h = x
+                for l in range(L):
+                    pre = torch.matmul(wf[l].t(), h) + bf[l][:, None]
+                    h = _act(pre, activation).to(BF16).float()
+                    hs.append(h)
+                heads = torch.matmul(wpv.t(), h) + bpv[:, None]   # (A+1, C)
+            chunk_sums, dlogits, dvalue = _loss_and_dheads(
+                heads[:A], heads[A], action[t, cols], logp_old[t, cols],
+                adv_norm[t, cols], value_old[t, cols], target[t, cols], **loss_kw)
+            sums += chunk_sums
             dheads = torch.cat([dlogits, dvalue[None]])              # (A+1, C)
             dheads_b = dheads.to(BF16).float()
-            dwpv += torch.matmul(hs[-1], dheads_b.t())
             dbpv += dheads.sum(dim=1)
+
+            if quant == "int8":
+                # The head products stay bf16; the hidden chain quantises
+                # dpre per (frame, cell) with a dynamic max-abs scale.
+                s_in_b = torch.tensor(S_IN, dtype=BF16, device=obs.device)
+                h_top = (hs[-1].to(BF16) * s_in_b).float()
+                dwpv += torch.matmul(h_top, dheads_b.t())
+                dh = torch.matmul(wq[L], dheads_b) * sw[L]          # (H, C)
+                ncell = dh.shape[1] // cell
+                for l in range(L - 1, -1, -1):
+                    h_f = hs[l] * S_IN
+                    dpre = dh * _dact(h_f, activation)
+                    sa = torch.clamp(dpre.abs().reshape(-1, ncell, cell).amax(dim=(0, 2)),
+                                     min=1e-30)                     # (cells,)
+                    dp_q = torch.round(dpre * (127.0 / sa).repeat_interleave(cell))
+                    k_dp = sa * S_IN
+                    below = hs[l - 1] if l > 0 else x_q
+                    dw[l] += _cell_dot(below, dp_q, k_dp * S_IN, cell)
+                    db[l] += dpre.sum(dim=1)
+                    if l > 0:
+                        dh = torch.matmul(wq[l], dp_q) * (sw[l] * k_dp).repeat_interleave(cell)
+                continue
+
+            dwpv += torch.matmul(hs[-1], dheads_b.t())
+            if bwd_bf16:
+                # The hidden chain in bf16 arithmetic, op by op.
+                dh_b = torch.matmul(wpv, dheads_b).to(BF16)
+                for l in range(L - 1, -1, -1):
+                    dpre_b = dh_b * _dact(hs[l].to(BF16), activation)
+                    below = hs[l - 1] if l > 0 else x
+                    dw[l] += torch.matmul(below, dpre_b.float().t())
+                    db[l] += dpre_b.float().sum(dim=1)
+                    if l > 0:
+                        dh_b = torch.matmul(wf[l], dpre_b.float()).to(BF16)
+                continue
             dh = torch.matmul(wpv, dheads_b)                         # (H, C)
             for l in range(L - 1, -1, -1):
-                dpre = dh * dact(hs[l])
+                dpre = dh * _dact(hs[l], activation)
                 dpre_b = dpre.to(BF16).float()
                 below = hs[l - 1] if l > 0 else x
                 dw[l] += torch.matmul(below, dpre_b.t())
                 db[l] += dpre.sum(dim=1)
                 if l > 0:
                     dh = torch.matmul(wf[l], dpre_b)
-    grads = _grads_dict(names, dw, db, dwpv, dbpv, A)
+    grads = _merged_grads(names, dw, db, dwpv, dbpv, A)
     return grads, _loss_vector(sums, inv_m, value_coef, entropy_coef)
+
+
+def fused_ppo_grads_rm_plain(params: Params, obs: torch.Tensor,
+                             action: torch.Tensor, logp_old: torch.Tensor,
+                             value_old: torch.Tensor, adv_norm: torch.Tensor,
+                             target: torch.Tensor, *, num_actions: int,
+                             activation: str, clip_eps: float,
+                             value_coef: float, entropy_coef: float,
+                             total_rows: int = 0
+                             ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """The plain PyTorch version of :func:`fused_ppo_grads` (K4), on any
+    device, transcribed from ``_kernel``: the f32 activation feeds the
+    derivative, the policy and value heads are two products each way.  It
+    walks ``PLAIN_COLS`` rows at a time."""
+    names, L, w, b = dense_layers(params)
+    f32 = torch.float32
+    m_rows = obs.shape[0]
+    inv_m = 1.0 / (total_rows or m_rows)
+    wf = [x.to(BF16).float() for x in w]
+    bf = [x.float() for x in b]
+    wp, wv = wf[L], wf[L + 1]
+    loss_kw = dict(inv_m=inv_m, clip_eps=clip_eps, value_coef=value_coef,
+                   entropy_coef=entropy_coef)
+
+    dw = [torch.zeros_like(x) for x in wf]
+    db = [torch.zeros_like(x) for x in bf]
+    sums = torch.zeros(4, dtype=f32, device=obs.device)
+    for r0 in range(0, m_rows, PLAIN_COLS):
+        rows = slice(r0, min(m_rows, r0 + PLAIN_COLS))
+        x = obs[rows].float()                                   # (R, F)
+        hs, hs_b = [], []
+        h_b = x
+        for l in range(L):
+            h = _act(torch.matmul(h_b, wf[l]) + bf[l], activation)
+            h_b = h.to(BF16).float()
+            hs.append(h)
+            hs_b.append(h_b)
+        logits = torch.matmul(h_b, wp) + bf[L]                  # (R, A)
+        value = (torch.matmul(h_b, wv) + bf[L + 1])[:, 0]       # (R,)
+        chunk_sums, dlogits, dvalue = _loss_and_dheads(
+            logits.t(), value, action[rows], logp_old[rows], adv_norm[rows],
+            value_old[rows], target[rows], **loss_kw)
+        sums += chunk_sums
+        dlogits = dlogits.t()                                   # (R, A)
+        dlogits_b = dlogits.to(BF16).float()
+        dvalue_b = dvalue.to(BF16).float()[:, None]             # (R, 1)
+        dw[L] += torch.matmul(hs_b[-1].t(), dlogits_b)
+        db[L] += dlogits.sum(dim=0)
+        dw[L + 1] += torch.matmul(hs_b[-1].t(), dvalue_b)
+        db[L + 1] += dvalue.sum()[None]
+        dh = torch.matmul(dlogits_b, wp.t()) + torch.matmul(dvalue_b, wv.t())
+        for l in range(L - 1, -1, -1):
+            dpre = dh * _dact(hs[l], activation)
+            dpre_b = dpre.to(BF16).float()
+            below = hs_b[l - 1] if l > 0 else x
+            dw[l] += torch.matmul(below.t(), dpre_b)
+            db[l] += dpre.sum(dim=0)
+            if l > 0:
+                dh = torch.matmul(dpre_b, wf[l].t())
+    grads = _grads_dict(names, dw[:L], db[:L], dw[L], db[L], dw[L + 1], db[L + 1])
+    return grads, _loss_vector(sums, inv_m, value_coef, entropy_coef)
+
+
+# ------------------------------------------------------------------ kernels --
+_PTR = ctypes.c_void_p
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused_update", SOURCES)
     fn = lib.fused_ppo_grads_fm_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6            # obs and the 5 scalars
-                   + [ctypes.c_void_p] * 2          # weight and bias pointer arrays
-                   + [ctypes.c_void_p]              # hidden widths
+    fn.argtypes = ([_PTR] * 6                       # obs and the 5 scalars
+                   + [_PTR] * 2                     # weight and bias pointer arrays
+                   + [_PTR]                         # hidden widths
                    + [ctypes.c_int] * 7             # L, F, Fp, A, relu, T, N
                    + [ctypes.c_float] * 4           # clip, -inv_m, ent, val scales
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # partial, G, stride
-                   + [ctypes.c_void_p, ctypes.c_void_p])            # out, stream
+                   + [_PTR, ctypes.c_int, ctypes.c_int]  # partial, G, stride
+                   + [_PTR, _PTR]                   # out, stream
+                   + [ctypes.c_int] * 2             # quant, bwd_bf16
+                   + [_PTR] * 3                     # int8 weights, scales, cell maxima
+                   + [ctypes.c_int])                # cell columns
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library_rm() -> ctypes.CDLL:
+    lib = _build.load("fused_update_rm", SOURCES_RM)
+    fn = lib.fused_ppo_grads_rm_launch
+    fn.argtypes = ([_PTR] * 6 + [_PTR] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 4 + [_PTR, ctypes.c_int, ctypes.c_int]
+                   + [_PTR, _PTR])
     fn.restype = ctypes.c_int
     return lib
 
@@ -174,98 +428,154 @@ def _round16(x: int) -> int:
     return -(-x // 16) * 16
 
 
-def _check(obs, scalars, action) -> torch.device:
+def _check_scalars(obs, scalars, action, rows_shape) -> torch.device:
     device = obs.device
-    if obs.dim() != 3 or obs.dtype != BF16:
-        raise ValueError(f"obs must be (T, F, N) bf16, got {tuple(obs.shape)} {obs.dtype}")
-    t_mb, _, n = obs.shape
     if action.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"action must be int32 or int64, got {action.dtype}")
     for x in (action, *scalars):
-        if x.shape != (t_mb, n):
-            raise ValueError(f"per-row inputs must be ({t_mb}, {n}), got {tuple(x.shape)}")
+        if x.shape != rows_shape:
+            raise ValueError(f"per-row inputs must be {tuple(rows_shape)}, got "
+                             f"{tuple(x.shape)}")
         if x.device != device:
             raise ValueError(f"inputs lie on {device} and {x.device}")
     for x in scalars:
         if x.dtype != torch.float32:
             raise TypeError(f"per-row float inputs must be float32, got {x.dtype}")
     if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"fused_ppo_grads_fm has no version for {device}")
+        raise ValueError(f"the fused PPO gradient has no version for {device}")
     return device
 
 
-def _launch(params: Params, obs, action, logp_old, value_old, adv_norm, target,
-            num_actions: int, activation: str, clip_eps: float,
-            value_coef: float, entropy_coef: float, inv_m: float):
-    """Pad the weights to the kernel's tiles, launch, and unpack the reduced
-    sums into a grads dict and the loss vector."""
-    names, L, w, b = dense_layers(params)
-    t_mb, f, n = obs.shape
+def _check(obs, scalars, action) -> torch.device:
+    if obs.dim() != 3 or obs.dtype != BF16:
+        raise ValueError(f"obs must be (T, F, N) bf16, got {tuple(obs.shape)} {obs.dtype}")
+    return _check_scalars(obs, scalars, action, (obs.shape[0], obs.shape[2]))
+
+
+def _check_rm(obs, scalars, action) -> torch.device:
+    if obs.dim() != 2 or obs.dtype != BF16:
+        raise ValueError(f"obs must be (M, F) bf16, got {tuple(obs.shape)} {obs.dtype}")
+    return _check_scalars(obs, scalars, action, (obs.shape[0],))
+
+
+def _check_net(w, L: int, A: int, head_pad: int, activation: str) -> List[int]:
+    """What the kernels take: 1-4 hidden layers of multiples of 16 up to 256
+    wide, a policy head of ``num_actions`` that fits the padded head."""
     hidden = [x.shape[1] for x in w[:L]]
-    A = num_actions
     if not 1 <= L <= MAX_LAYERS or any(h % 16 or h > MAX_WIDTH for h in hidden):
         raise ValueError(f"the kernel takes 1-{MAX_LAYERS} hidden layers of multiples "
                          f"of 16 up to {MAX_WIDTH} wide, got {hidden}")
-    if A + 1 > HEAD_PAD or w[L].shape[1] != A:
-        raise ValueError(f"the kernel takes up to {HEAD_PAD - 1} actions; the "
+    if A + 1 > head_pad or w[L].shape[1] != A:
+        raise ValueError(f"the kernel takes up to {head_pad - 1} actions; the "
                          f"policy head has {w[L].shape[1]}, num_actions is {A}")
     if activation not in ("tanh", "relu"):
         raise ValueError(f"unknown activation {activation!r}")
-    device = obs.device
-    fp = _round16(f)
-    h_top = hidden[-1]
-    w0 = torch.zeros((fp, hidden[0]), dtype=BF16, device=device)
-    w0[:f] = w[0].to(BF16)
-    wpv = torch.zeros((h_top, HEAD_PAD), dtype=BF16, device=device)
-    wpv[:, :A + 1] = torch.cat([w[L], w[L + 1]], dim=1).to(BF16)
-    bpv = torch.zeros(HEAD_PAD, dtype=torch.float32, device=device)
-    bpv[:A + 1] = torch.cat([b[L], b[L + 1]]).float()
-    weights = [w0] + [x.to(BF16).contiguous() for x in w[1:L]] + [wpv]
-    biases = [x.float().contiguous() for x in b[:L]] + [bpv]
+    return hidden
 
-    # Per block: every dW, then every bias grad, then the 4 loss sums.
-    widths = [fp, *hidden]
-    n_w = sum(i * o for i, o in zip(widths[:-1], widths[1:])) + h_top * HEAD_PAD
-    n_b = sum(hidden) + HEAD_PAD
+
+def _partials(device, widths, head_pad: int, tiles: int, shape):
+    """Per-block partials and the reduced output: every dW, then every bias
+    grad, then the 4 loss sums, a block's row padded to 64 floats."""
+    h_top = widths[-1]
+    n_w = sum(i * o for i, o in zip(widths[:-1], widths[1:])) + h_top * head_pad
+    n_b = sum(widths[1:]) + head_pad
     stride = -(-(n_w + n_b + 4) // 64) * 64
-    tiles = t_mb * -(-n // COLS)
     if tiles == 0:
-        raise ValueError(f"empty minibatch: obs is {tuple(obs.shape)}")
+        raise ValueError(f"empty minibatch: obs is {tuple(shape)}")
     blocks = min(tiles, torch.cuda.get_device_properties(device).multi_processor_count)
     partial = torch.empty((blocks, stride), dtype=torch.float32, device=device)
     out = torch.empty(stride, dtype=torch.float32, device=device)
-    act32 = action.to(torch.int32).contiguous()
-    scal = [x.contiguous() for x in (logp_old, value_old, adv_norm, target)]
-    obs = obs.contiguous()
-    w_ptrs = (ctypes.c_void_p * len(weights))(*[x.data_ptr() for x in weights])
-    b_ptrs = (ctypes.c_void_p * len(biases))(*[x.data_ptr() for x in biases])
-    dims = (ctypes.c_int * L)(*hidden)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _library().fused_ppo_grads_fm_launch(
-            obs.data_ptr(), act32.data_ptr(), *[x.data_ptr() for x in scal],
-            ctypes.cast(w_ptrs, ctypes.c_void_p), ctypes.cast(b_ptrs, ctypes.c_void_p),
-            ctypes.cast(dims, ctypes.c_void_p), L, f, fp, A,
-            int(activation == "relu"), t_mb, n,
-            clip_eps, -inv_m, entropy_coef * inv_m, value_coef * inv_m,
-            partial.data_ptr(), blocks, stride, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"fused PPO gradient kernel launch failed: CUDA error {err}")
+    return partial, out, blocks, stride
 
+
+def _unpack(out, widths, head_pad: int, f: int):
+    """The reduced output -> (dw list, db list, head dW (H, pad), head db
+    (pad,), loss sums (4,))."""
     dw, pos = [], 0
     for i, o in zip(widths[:-1], widths[1:]):
         dw.append(out[pos:pos + i * o].view(i, o))
         pos += i * o
     dw[0] = dw[0][:f]
-    dwpv = out[pos:pos + h_top * HEAD_PAD].view(h_top, HEAD_PAD)
-    pos += h_top * HEAD_PAD
+    h_top = widths[-1]
+    dwh = out[pos:pos + h_top * head_pad].view(h_top, head_pad)
+    pos += h_top * head_pad
     db = []
-    for h in hidden:
+    for h in widths[1:]:
         db.append(out[pos:pos + h])
         pos += h
-    dbpv = out[pos:pos + HEAD_PAD]
-    sums = out[pos + HEAD_PAD:pos + HEAD_PAD + 4]
-    grads = _grads_dict(names, dw, db, dwpv, dbpv, A)
+    dbh = out[pos:pos + head_pad]
+    return dw, db, dwh, dbh, out[pos + head_pad:pos + head_pad + 4]
+
+
+def _ptr_array(tensors):
+    arr = (_PTR * len(tensors))(*[x.data_ptr() for x in tensors])
+    return ctypes.cast(arr, _PTR), arr
+
+
+def _launch(params: Params, obs, action, logp_old, value_old, adv_norm, target,
+            num_actions: int, activation: str, clip_eps: float,
+            value_coef: float, entropy_coef: float, inv_m: float,
+            quant: str = "none", bwd_bf16: bool = False):
+    """Pad the weights to K1's tiles, launch, and unpack the reduced sums
+    into a grads dict and the loss vector."""
+    names, L, w, b = dense_layers(params)
+    t_mb, f, n = obs.shape
+    A = num_actions
+    hidden = _check_net(w, L, A, HEAD_PAD, activation)
+    device = obs.device
+    fp = _round16(f)
+    h_top = hidden[-1]
+    bf16_w = [x.to(BF16) for x in w]
+    quantised = quant != "none"
+    if quantised:
+        wq, sw = quantize_weights(w, L)
+        q0 = torch.zeros((fp, hidden[0]), dtype=torch.int8, device=device)
+        q0[:f] = wq[0]
+        qh = torch.zeros((h_top, HEAD_PAD), dtype=torch.int8, device=device)
+        qh[:, :A + 1] = wq[L]
+        qweights = [q0] + [x.contiguous() for x in wq[1:L]] + [qh]
+        sw = sw.contiguous()
+        if quant == "int8":
+            # The int8 backward's head product takes the int8 head as bf16.
+            bf16_w[L] = wq[L][:, :A].to(BF16)
+            bf16_w[L + 1] = wq[L][:, A:].to(BF16)
+    w0 = torch.zeros((fp, hidden[0]), dtype=BF16, device=device)
+    w0[:f] = bf16_w[0]
+    wpv = torch.zeros((h_top, HEAD_PAD), dtype=BF16, device=device)
+    wpv[:, :A + 1] = torch.cat([bf16_w[L], bf16_w[L + 1]], dim=1)
+    bpv = torch.zeros(HEAD_PAD, dtype=torch.float32, device=device)
+    bpv[:A + 1] = torch.cat([b[L], b[L + 1]]).float()
+    weights = [w0] + [x.contiguous() for x in bf16_w[1:L]] + [wpv]
+    biases = [x.float().contiguous() for x in b[:L]] + [bpv]
+
+    widths = [fp, *hidden]
+    partial, out, blocks, stride = _partials(device, widths, HEAD_PAD,
+                                             t_mb * -(-n // COLS), obs.shape)
+    cell = cell_cols(n)
+    cellmax = (torch.zeros((L, t_mb, -(-n // cell)), dtype=torch.float32, device=device)
+               if quant == "int8" else None)
+    act32 = action.to(torch.int32).contiguous()
+    scal = [x.contiguous() for x in (logp_old, value_old, adv_norm, target)]
+    obs = obs.contiguous()
+    w_ptrs, _w = _ptr_array(weights)
+    b_ptrs, _b = _ptr_array(biases)
+    q_ptrs, _q = _ptr_array(qweights) if quantised else (None, None)
+    dims = (ctypes.c_int * L)(*hidden)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _library().fused_ppo_grads_fm_launch(
+            obs.data_ptr(), act32.data_ptr(), *[x.data_ptr() for x in scal],
+            w_ptrs, b_ptrs, ctypes.cast(dims, _PTR), L, f, fp, A,
+            int(activation == "relu"), t_mb, n,
+            clip_eps, -inv_m, entropy_coef * inv_m, value_coef * inv_m,
+            partial.data_ptr(), blocks, stride, out.data_ptr(), stream,
+            QUANT_CODE[quant], int(bwd_bf16), q_ptrs,
+            sw.data_ptr() if quantised else None,
+            cellmax.data_ptr() if cellmax is not None else None, cell)
+    if err != 0:
+        raise RuntimeError(f"fused PPO gradient kernel launch failed: CUDA error {err}")
+    dw, db, dwpv, dbpv, sums = _unpack(out, widths, HEAD_PAD, f)
+    grads = _merged_grads(names, dw, db, dwpv, dbpv, A)
     return grads, _loss_vector(sums, inv_m, value_coef, entropy_coef)
 
 
@@ -274,25 +584,31 @@ def fused_ppo_grads_fm(params: Params, obs: torch.Tensor, action: torch.Tensor,
                        adv_norm: torch.Tensor, target: torch.Tensor, *,
                        num_actions: int, activation: str, clip_eps: float,
                        value_coef: float, entropy_coef: float,
-                       total_rows: int = 0
+                       total_rows: int = 0, quant: str = "none",
+                       bwd_bf16: bool = False
                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """Clipped-PPO gradient of one minibatch.
+    """Clipped-PPO gradient of one minibatch, feature-major (K1).
 
     ``params``: the network's parameter dict (``dense_layers`` order);
     ``obs``: (T, F, N) bf16 normalised, feature-major; ``action`` (T, N)
     int; ``logp_old``, ``value_old``, ``adv_norm`` (already normalised by
     the caller), ``target``: (T, N) float32.  Any T and N.  ``total_rows``
-    sets the mean's denominator (0: T*N).
+    sets the mean's denominator (0: T*N).  ``quant`` ("none", "int8",
+    "int8fwd") and ``bwd_bf16`` pick the precision mode (module docstring);
+    the int8 modes take ``activation="tanh"`` only.
 
     Returns ``(grads, losses)``: f32 grads keyed like ``params`` and
     ``losses = [total, policy, value, entropy, approx_kl]`` (means).  On
     CUDA this launches ``csrc/fused_update.cu`` on the current stream
-    without synchronising and adds one to ``fused_ppo_grads_fm.launches``;
-    on the CPU it runs :func:`fused_ppo_grads_fm_plain`."""
+    without synchronising and adds one to ``fused_ppo_grads_fm.launches``
+    and to ``launches_by_mode[mode_name(quant, bwd_bf16)]``; on the CPU it
+    runs :func:`fused_ppo_grads_fm_plain`."""
     scalars = (logp_old, value_old, adv_norm, target)
     device = _check(obs, scalars, action)
+    check_mode(quant, activation, dense_layers(params)[1])
     kw = dict(num_actions=num_actions, activation=activation, clip_eps=clip_eps,
-              value_coef=value_coef, entropy_coef=entropy_coef)
+              value_coef=value_coef, entropy_coef=entropy_coef, quant=quant,
+              bwd_bf16=bwd_bf16)
     if device.type == "cpu":
         return fused_ppo_grads_fm_plain(params, obs, action, *scalars,
                                         total_rows=total_rows, **kw)
@@ -300,7 +616,93 @@ def fused_ppo_grads_fm(params: Params, obs: torch.Tensor, action: torch.Tensor,
     inv_m = 1.0 / (total_rows or t_mb * n)
     result = _launch(params, obs, action, *scalars, inv_m=inv_m, **kw)
     fused_ppo_grads_fm.launches += 1
+    fused_ppo_grads_fm.launches_by_mode[mode_name(quant, bwd_bf16)] += 1
     return result
 
 
-fused_ppo_grads_fm.launches = 0
+def zero_fm_counts() -> None:
+    fused_ppo_grads_fm.launches = 0
+    fused_ppo_grads_fm.launches_by_mode = {
+        mode_name(q, bb): 0 for q in QUANT_MODES for bb in (False, True)}
+
+
+zero_fm_counts()
+
+
+def _launch_rm(params: Params, obs, action, logp_old, value_old, adv_norm, target,
+               num_actions: int, activation: str, clip_eps: float,
+               value_coef: float, entropy_coef: float, inv_m: float):
+    """Pad the weights to K4's tiles (the policy head in rows 0..A-1 of a
+    48-row head, the value head in row 32), launch, and unpack."""
+    names, L, w, b = dense_layers(params)
+    m_rows, f = obs.shape
+    A = num_actions
+    hidden = _check_net(w, L, A, VALUE_ROW_RM + 1, activation)
+    device = obs.device
+    fp = _round16(f)
+    h_top = hidden[-1]
+    w0 = torch.zeros((fp, hidden[0]), dtype=BF16, device=device)
+    w0[:f] = w[0].to(BF16)
+    wh = torch.zeros((h_top, HEAD_PAD_RM), dtype=BF16, device=device)
+    wh[:, :A] = w[L].to(BF16)
+    wh[:, VALUE_ROW_RM] = w[L + 1][:, 0].to(BF16)
+    bh = torch.zeros(HEAD_PAD_RM, dtype=torch.float32, device=device)
+    bh[:A] = b[L].float()
+    bh[VALUE_ROW_RM] = b[L + 1][0].float()
+    weights = [w0] + [x.to(BF16).contiguous() for x in w[1:L]] + [wh]
+    biases = [x.float().contiguous() for x in b[:L]] + [bh]
+
+    widths = [fp, *hidden]
+    partial, out, blocks, stride = _partials(device, widths, HEAD_PAD_RM,
+                                             -(-m_rows // ROWS_RM), obs.shape)
+    act32 = action.to(torch.int32).contiguous()
+    scal = [x.contiguous() for x in (logp_old, value_old, adv_norm, target)]
+    obs = obs.contiguous()
+    w_ptrs, _w = _ptr_array(weights)
+    b_ptrs, _b = _ptr_array(biases)
+    dims = (ctypes.c_int * L)(*hidden)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _library_rm().fused_ppo_grads_rm_launch(
+            obs.data_ptr(), act32.data_ptr(), *[x.data_ptr() for x in scal],
+            w_ptrs, b_ptrs, ctypes.cast(dims, _PTR), L, f, fp, A,
+            int(activation == "relu"), m_rows,
+            clip_eps, -inv_m, entropy_coef * inv_m, value_coef * inv_m,
+            partial.data_ptr(), blocks, stride, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"row-major PPO gradient kernel launch failed: CUDA error {err}")
+    dw, db, dwh, dbh, sums = _unpack(out, widths, HEAD_PAD_RM, f)
+    v = VALUE_ROW_RM
+    grads = _grads_dict(names, dw, db, dwh[:, :A], dbh[:A], dwh[:, v:v + 1], dbh[v:v + 1])
+    return grads, _loss_vector(sums, inv_m, value_coef, entropy_coef)
+
+
+def fused_ppo_grads(params: Params, obs: torch.Tensor, action: torch.Tensor,
+                    logp_old: torch.Tensor, value_old: torch.Tensor,
+                    adv_norm: torch.Tensor, target: torch.Tensor, *,
+                    num_actions: int, activation: str, clip_eps: float,
+                    value_coef: float, entropy_coef: float, total_rows: int = 0
+                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Clipped-PPO gradient of one minibatch, row-major (K4).
+
+    ``obs``: (M, F) bf16 normalised; ``action`` (M,) int; ``logp_old``,
+    ``value_old``, ``adv_norm`` (normalised by the caller), ``target``:
+    (M,) float32.  ``total_rows`` sets the mean's denominator (0: M).
+    Returns ``(grads, losses)`` as :func:`fused_ppo_grads_fm`.  On CUDA this
+    launches ``csrc/fused_update_rm.cu`` on the current stream without
+    synchronising and adds one to ``fused_ppo_grads.launches``; on the CPU
+    it runs :func:`fused_ppo_grads_rm_plain`."""
+    scalars = (logp_old, value_old, adv_norm, target)
+    device = _check_rm(obs, scalars, action)
+    kw = dict(num_actions=num_actions, activation=activation, clip_eps=clip_eps,
+              value_coef=value_coef, entropy_coef=entropy_coef)
+    if device.type == "cpu":
+        return fused_ppo_grads_rm_plain(params, obs, action, *scalars,
+                                        total_rows=total_rows, **kw)
+    inv_m = 1.0 / (total_rows or obs.shape[0])
+    result = _launch_rm(params, obs, action, *scalars, inv_m=inv_m, **kw)
+    fused_ppo_grads.launches += 1
+    return result
+
+
+fused_ppo_grads.launches = 0

@@ -17,8 +17,9 @@ computes it.  On a CUDA device float32 products run in full float32
 (``torch.backends.cuda.matmul.allow_tf32`` stays False), which the inverse-CDF
 sampling relies on; bf16 products are the network's own.
 
-Not ported yet (they raise): the row-major kernel K4 (``fused_update="on"``),
-the int8 update modes, the minibatch shuffle and the device mesh.
+Entry points run on the card unless the caller asks for the CPU
+(``make_ppo_trainer(..., device="cpu")``).  Not ported yet (it raises): the
+device mesh.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ import torch
 
 from pikazoo_tpu_torch.envs.observations import assemble_obs
 from pikazoo_tpu_torch.envs.pika_volley import EnvState, PikaZoo
-from pikazoo_tpu_torch.train.fused_update import fused_ppo_grads_fm
+from pikazoo_tpu_torch.train.fused_update import (check_mode, fused_ppo_grads,
+                                                  fused_ppo_grads_fm)
 from pikazoo_tpu_torch.train.networks import (BF16, ActorCritic, Params, apply,
                                               apply_fm, normalize_obs)
 
@@ -58,11 +60,21 @@ class PPOConfig:
     # (against the rule AI on seat 2: pass is_player2_computer=True).
     learner_seats: str = "both"
     # Minibatch gradients: "auto" = K1 on a CUDA device, autograd on the CPU;
-    # "fm" = K1 (its plain version on the CPU); "off" = autograd of loss_fn;
-    # "on" = the row-major kernel K4, not ported yet.
+    # "fm" = K1 (its plain version on the CPU); "on" = the row-major kernel
+    # K4 (likewise); "off" = autograd of loss_fn.
     fused_update: str = "auto"
-    update_quant: str = "none"  # int8 modes of K1: not ported yet
-    shuffle_minibatches: bool = False  # not ported yet
+    # K1's precision: "none" (bf16), "int8fwd" (int8 forward products, bf16
+    # backward) or "int8" (the heavy backward products int8 too, dynamic
+    # scales); the int8 modes need K1 and activation="tanh".
+    update_quant: str = "none"
+    # K1's hidden gradient chain in bf16 arithmetic: the trainer's one route
+    # to fused_ppo_grads_fm(bwd_bf16=True).  It is the counterpart of the JAX
+    # kernel's PIKAZOO_FM_BWD_BF16 environment knob, which the port does not
+    # read.
+    update_bwd_bf16: bool = False
+    # Permute the trajectory's time axis (one permutation an update) before
+    # the minibatch split: textbook-PPO epochs.
+    shuffle_minibatches: bool = False
 
 
 class Transition(NamedTuple):
@@ -171,41 +183,46 @@ def make_optimizer(cfg: PPOConfig):
     return init, update
 
 
-def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cpu",
+def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
                      mesh=None):
     """Build ``(init_fn, train_step, network)``.
 
     ``init_fn(seed) -> PPORunnerState`` and ``train_step(runner) ->
-    (runner, TrainMetrics)``, everything on ``device``.  ``train_step``
+    (runner, TrainMetrics)``, everything on ``device`` (the card unless the
+    caller asks for the CPU).  ``train_step``
     carries the phases as attributes, as the JAX trainer does:
     ``rollout_fn(params, env_state, last_obs, uniforms)``,
     ``policy_sample_fn(params, norm_obs_fm, u)``,
     ``minibatch_grads_fn(params, mtraj, madv, mtarget)``,
     ``update_fn(params, opt_state, traj, advantages, targets)``, ``tx``
-    (the optimizer's ``(init, update)``) and ``provenance``."""
+    (the optimizer's ``(init, update)``), ``shuffle_fn(batch, generator)``
+    and ``provenance``."""
     device = torch.device(device)
     if mesh is not None:
         raise NotImplementedError("the device mesh is not ported yet "
                                   "(ROADMAP Queue 1 item 2)")
-    if cfg.fused_update == "on":
-        raise NotImplementedError(
-            "fused_update='on' is the row-major kernel K4 "
-            "(pikazoo_tpu/train/fused_update.py:651), not ported yet: "
-            "ROADMAP Queue 2, K4")
-    if cfg.fused_update not in ("auto", "fm", "off"):
+    if cfg.fused_update not in ("auto", "fm", "on", "off"):
         raise ValueError(f"unknown fused_update {cfg.fused_update!r}")
-    if cfg.update_quant != "none":
-        raise NotImplementedError(f"update_quant={cfg.update_quant!r}: the int8 modes "
-                                  "of K1 are not ported yet (ROADMAP Queue 2, K1)")
-    if cfg.shuffle_minibatches:
-        raise NotImplementedError("shuffle_minibatches is not ported yet "
-                                  "(ROADMAP Queue 1)")
     if cfg.learner_seats not in ("both", "p1"):
         raise ValueError(f"unknown learner_seats {cfg.learner_seats!r}")
     if cfg.rollout_length % cfg.num_minibatches:
         raise ValueError("num_minibatches must divide rollout_length")
-    use_fused = (cfg.fused_update == "fm"
-                 or (cfg.fused_update == "auto" and device.type == "cuda"))
+    if cfg.fused_update == "on":
+        resolved = "row"
+    elif cfg.fused_update == "fm" or (cfg.fused_update == "auto" and device.type == "cuda"):
+        resolved = "fm"
+    else:
+        resolved = "autograd"
+    if (cfg.update_quant != "none" or cfg.update_bwd_bf16) and resolved != "fm":
+        # The precision modes exist only in K1; running bf16 instead would
+        # corrupt any A/B the user believes they are running.
+        raise ValueError(
+            f"update_quant={cfg.update_quant!r} / update_bwd_bf16="
+            f"{cfg.update_bwd_bf16} require the feature-major fused kernel, but "
+            f"fused_update={cfg.fused_update!r} resolved to {resolved!r} on "
+            f"{device.type}; set fused_update='fm'")
+    if resolved == "fm":
+        check_mode(cfg.update_quant, cfg.activation, len(cfg.hidden))
     network = ActorCritic(cfg.num_actions, cfg.hidden, cfg.activation,
                           device=device)
     tx_init, tx_update = make_optimizer(cfg)
@@ -303,14 +320,22 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cpu",
     def minibatch_grads(params: Params, mtraj: Transition, madv: torch.Tensor,
                         mtarget: torch.Tensor):
         """The minibatch gradient train_step runs: K1 (its plain version on
-        the CPU) or autograd of ``loss_fn``.  Returns ``(grads, losses[5])``."""
-        if use_fused:
+        the CPU), K4 on the minibatch flattened to rows, or autograd of
+        ``loss_fn``.  Returns ``(grads, losses[5])``."""
+        if resolved != "autograd":
             adv_n = (madv - madv.mean()) / (madv.std(correction=0) + 1e-8)
-            return fused_ppo_grads_fm(
-                params, mtraj.obs, mtraj.action, mtraj.log_prob, mtraj.value,
-                adv_n, mtarget, num_actions=cfg.num_actions,
-                activation=cfg.activation, clip_eps=cfg.clip_eps,
-                value_coef=cfg.value_coef, entropy_coef=cfg.entropy_coef)
+            kw = dict(num_actions=cfg.num_actions, activation=cfg.activation,
+                      clip_eps=cfg.clip_eps, value_coef=cfg.value_coef,
+                      entropy_coef=cfg.entropy_coef)
+            data = (mtraj.action, mtraj.log_prob, mtraj.value, adv_n, mtarget)
+            if resolved == "fm":
+                return fused_ppo_grads_fm(params, mtraj.obs, *data,
+                                          quant=cfg.update_quant,
+                                          bwd_bf16=cfg.update_bwd_bf16, **kw)
+            # (T_mb, F, 2B) -> (T_mb * 2B, F) rows and (T_mb, 2B) -> (T_mb * 2B,),
+            # as the JAX trainer's rm_flat.
+            obs = mtraj.obs.transpose(1, 2).reshape(-1, mtraj.obs.shape[1])
+            return fused_ppo_grads(params, obs, *[x.reshape(-1) for x in data], **kw)
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         with torch.enable_grad():
             total, aux = loss_fn(leaves, mtraj, madv, mtarget)
@@ -338,6 +363,14 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cpu",
         shape = (cfg.update_epochs, cfg.num_minibatches, 5)
         return params, opt_state, torch.stack(losses).reshape(shape)
 
+    def shuffle(batch, generator: torch.Generator):
+        """``batch`` (a tuple of time-major leaves and tuples of them)
+        permuted along the time axis by one ``torch.randperm`` drawn from
+        ``generator``."""
+        perm = torch.randperm(cfg.rollout_length, generator=generator, device=device)
+        return tuple(type(x)(*[leaf[perm] for leaf in x]) if isinstance(x, tuple)
+                     else x[perm] for x in batch)
+
     # ---------------------------------------------------------- train step --
     @torch.no_grad()
     def train_step(runner: PPORunnerState) -> Tuple[PPORunnerState, TrainMetrics]:
@@ -354,6 +387,8 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cpu",
             # Seat 1 is the first half of the (last) env axis of every leaf.
             traj = Transition(*[leaf[..., :B] for leaf in traj])
             advantages, targets = advantages[..., :B], targets[..., :B]
+        if cfg.shuffle_minibatches:
+            traj, advantages, targets = shuffle((traj, advantages, targets), runner.key)
         params, opt_state, losses = update(runner.params, runner.opt_state, traj,
                                            advantages, targets)
         total, policy_loss, value_loss, entropy, approx_kl = losses.mean(dim=(0, 1))
@@ -373,10 +408,13 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cpu",
     train_step.minibatch_grads_fn = minibatch_grads
     train_step.update_fn = update
     train_step.tx = (tx_init, tx_update)
+    train_step.shuffle_fn = shuffle
     train_step.provenance = {
-        "fused_update": "fm" if use_fused else "autograd",
+        "fused_update": resolved,
         "configured": cfg.fused_update,
         "update_quant": cfg.update_quant,
+        "update_bwd_bf16": cfg.update_bwd_bf16,
+        "shuffle_minibatches": cfg.shuffle_minibatches,
         "backend": device.type,
     }
     return init_fn, train_step, network

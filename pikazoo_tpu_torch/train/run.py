@@ -5,10 +5,11 @@ Usage:
         --metrics out.jsonl
 
 Counterpart of ``pikazoo_tpu.train.run`` without the flags whose modules are
-not ported yet (checkpointing, multi-host, wrappers, profiling, shuffle).
-Runs on CUDA when a card is present, else on the CPU.  Prints one line per
-update and, with ``--metrics``, writes one JSON object per update (after a
-header line with the resolved dispatch).
+not ported yet (checkpointing, multi-host, wrappers, profiling).  Runs on
+the card (``--device cuda``, the default) and raises when there is none;
+``--device cpu`` runs on the CPU.  Prints one line per update and, with
+``--metrics``, writes one JSON object per update (after a header line with
+the resolved dispatch).
 """
 
 from __future__ import annotations
@@ -33,9 +34,15 @@ def parse_args(argv=None):
     p.add_argument("--vs-ai", action="store_true",
                    help="train seat 1 against the built-in rule AI on seat 2 "
                         "instead of symmetric self-play")
-    p.add_argument("--fused-update", default="auto", choices=["auto", "fm", "off"],
-                   help="minibatch gradient: auto = the fused kernel on CUDA, "
-                        "autograd on the CPU")
+    p.add_argument("--fused-update", default="auto", choices=["auto", "on", "fm", "off"],
+                   help="minibatch gradient: auto = the feature-major kernel K1 on "
+                        "CUDA, autograd on the CPU; fm = K1; on = the row-major "
+                        "kernel K4; off = autograd")
+    p.add_argument("--shuffle", action="store_true",
+                   help="textbook-PPO trajectory time-axis shuffle before the "
+                        "minibatch split")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda; cpu on request)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--metrics", default=None, help="JSONL metrics path")
     return p.parse_args(argv)
@@ -46,13 +53,16 @@ def main(argv=None):
     from pikazoo_tpu_torch.envs import EnvConfig, PikaZoo
     from pikazoo_tpu_torch.train import PPOConfig, make_ppo_trainer
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda, but torch.cuda.is_available() is false; "
+                           "pass --device cpu to train on the CPU")
     env = PikaZoo(EnvConfig(winning_score=args.winning_score, serve=args.serve,
                             auto_reset=True, is_player2_computer=args.vs_ai))
     cfg = PPOConfig(num_envs=args.num_envs, rollout_length=args.rollout_length,
                     learning_rate=args.learning_rate,
                     learner_seats="p1" if args.vs_ai else "both",
-                    fused_update=args.fused_update)
+                    fused_update=args.fused_update, shuffle_minibatches=args.shuffle)
     init_fn, train_step, _ = make_ppo_trainer(env, cfg, device=device)
     runner = init_fn(args.seed)
     header = {"provenance": {**train_step.provenance, "device": str(device),

@@ -26,7 +26,7 @@ ARTIFACT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 def real_observations(batch=256, frames=60, every=5):
     """(N, 35) int32 observations of seat 1 from random-vs-rule-AI play."""
     env = PikaZoo(EnvConfig(is_player2_computer=True))
-    state, ts = env.reset_batch(5, batch)
+    state, ts = env.reset_batch(5, batch, device="cpu")
     rng = np.random.default_rng(5)
     seen = []
     for t in range(frames):

@@ -69,7 +69,8 @@ def test_port_imports_no_jax():
     code = ("import sys; import pikazoo_tpu_torch, pikazoo_tpu_torch.convert, "
             "pikazoo_tpu_torch.core.predict_cuda, pikazoo_tpu_torch.train, "
             "pikazoo_tpu_torch.train.ppo, pikazoo_tpu_torch.train.fused_update, "
-            "pikazoo_tpu_torch.train.run, chip_smoke; "
+            "pikazoo_tpu_torch.train.run, pikazoo_tpu_torch.tools.k1_precision_probe, "
+            "chip_smoke; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'pikazoo_tpu')); "
             "assert not bad, bad")

@@ -45,7 +45,7 @@ def test_trajectory_matches_jax(case):
     jax_env, env = JaxZoo(JaxConfig(**kw)), PikaZoo(EnvConfig(**kw))
     key = jax.random.key(11)
     jax_out = jax_env.reset_batch(key, B)
-    out = env.reset_batch(np.asarray(jax.random.key_data(key)), B)
+    out = env.reset_batch(np.asarray(jax.random.key_data(key)), B, device="cpu")
     assert_frame_equal(-1, jax_out, out)
 
     jax_step = jax.jit(jax_env.step_batch)
@@ -67,7 +67,7 @@ def test_single_env_reset_and_step_match_jax():
     jax_env, env = JaxZoo(JaxConfig(serve="random")), PikaZoo(EnvConfig(serve="random"))
     key = jax.random.key(4)
     jax_out = jax_env.reset(key)
-    out = env.reset(np.asarray(jax.random.key_data(key)))
+    out = env.reset(np.asarray(jax.random.key_data(key)), device="cpu")
     assert out[0].ball.x.shape == () and out[1].obs.shape == (2, 35)
     assert_frame_equal(-1, jax_out, out)
     jax_step = jax.jit(jax_env.step)

@@ -118,7 +118,7 @@ def test_pack_state_matches_jax():
 
 
 def test_unpack_inverts_pack():
-    state, _ = PikaZoo(EnvConfig(serve="random")).reset_batch(3, B)
+    state, _ = PikaZoo(EnvConfig(serve="random")).reset_batch(3, B, device="cpu")
     back = fused_step.unpack_state(fused_step.pack_state(state, 9))
     assert_same(env_state_to_numpy(state), env_state_to_numpy(back))
 
@@ -193,7 +193,7 @@ def test_host_build_matches_jax_with_ai(case, host_rollout):
 def test_two_calls_continue_one(host_rollout):
     """Actions are keyed on the cumulative step_count: 2 x 30 frames == 60."""
     cfg = EnvConfig(winning_score=2)
-    state, _ = PikaZoo(cfg).reset_batch(5, B)
+    state, _ = PikaZoo(cfg).reset_batch(5, B, device="cpu")
     once = fused_rollout(state, 6, cfg, 60)
     twice = fused_rollout(fused_rollout(state, 6, cfg, 30), 6, cfg, 30)
     assert_same(env_state_to_numpy(once), env_state_to_numpy(twice))
@@ -214,10 +214,10 @@ def to_device(tree, device):
 
 def test_rollout_rejects_bad_states():
     cfg = EnvConfig()
-    state, _ = PikaZoo(cfg).reset_batch(0, B + 256)
+    state, _ = PikaZoo(cfg).reset_batch(0, B + 256, device="cpu")
     with pytest.raises(ValueError, match="multiple of 1024"):
         fused_rollout(state, 0, cfg, 1)
-    state, _ = PikaZoo(cfg).reset_batch(0, B)
+    state, _ = PikaZoo(cfg).reset_batch(0, B, device="cpu")
     with pytest.raises(ValueError, match="no version"):
         fused_rollout(to_device(state, "meta"), 0, cfg, 1)
     with pytest.raises(TypeError, match="int32"):
@@ -232,7 +232,7 @@ def test_rollout_rejects_bad_states():
 
 def test_cpu_call_launches_nothing():
     cfg = EnvConfig(is_player1_computer=True)
-    state, _ = PikaZoo(cfg).reset_batch(1, B)
+    state, _ = PikaZoo(cfg).reset_batch(1, B, device="cpu")
     before = fused_rollout.launches
     out = fused_rollout(state, 2, cfg, 3)
     assert fused_rollout.launches == before

@@ -1,6 +1,7 @@
 """The PPO learner as a whole, from a JAX runner carried across to the port:
 the rollout frame by frame (sampling and env), the update phase epoch by
-epoch, and a port-only smoke test of ``train_step``."""
+epoch (autograd, K1 and K4), and port-only tests of ``train_step`` in every
+configuration of the update: K1's precision modes, K4 and the shuffle."""
 
 import json
 
@@ -24,7 +25,8 @@ from pikazoo_tpu_torch.convert import (env_state_from_numpy, env_state_to_numpy,
                                        params_from_flax, params_to_flax)
 from pikazoo_tpu_torch.train import PPOConfig, make_ppo_trainer
 from pikazoo_tpu_torch.train import run as port_run
-from pikazoo_tpu_torch.train.ppo import Transition
+from pikazoo_tpu_torch.train.networks import apply_fm
+from pikazoo_tpu_torch.train.ppo import Transition, gae_associative
 from torch_helpers import assert_same, bf16_bits, to_torch
 
 SIZES = dict(num_envs=64, rollout_length=8, num_minibatches=2, update_epochs=2,
@@ -56,7 +58,7 @@ def test_rollout_frame_by_frame_matches_jax(jax_run):
     observations, rewards and dones."""
     runner, traj = jax_run["runner"], jax.device_get(jax_run["traj"])
     _, train_step, _ = make_ppo_trainer(PikaZoo(EnvConfig(auto_reset=True, winning_score=2)),
-                                        PPOConfig(**SIZES))
+                                        PPOConfig(**SIZES), device="cpu")
     params = params_from_flax(jax.device_get(runner.params))
     env = PikaZoo(EnvConfig(auto_reset=True, winning_score=2))
     state = env_state_from_numpy(jax.device_get(runner.env_state))
@@ -87,7 +89,7 @@ def test_rollout_frame_by_frame_matches_jax(jax_run):
     assert checked > 0.9 * T * 2 * B
 
 
-@pytest.mark.parametrize("mode", ["fm", "off"])
+@pytest.mark.parametrize("mode", ["fm", "on", "off"])
 def test_update_phase_matches_jax_epoch_loop(jax_run, mode):
     """From JAX's trajectory, the port's update_fn against JAX's epoch loop
     rebuilt from its minibatch_grads_fn and tx, as ppo.py:514-536 runs it.
@@ -120,7 +122,7 @@ def test_update_phase_matches_jax_epoch_loop(jax_run, mode):
             want_losses.append(np.asarray(losses))
 
     _, port_step, _ = make_ppo_trainer(PikaZoo(EnvConfig()),
-                                       PPOConfig(**SIZES, fused_update=mode))
+                                       PPOConfig(**SIZES, fused_update=mode), device="cpu")
     tx_init, _ = port_step.tx
     port_params = params_from_flax(jax.device_get(runner.params))
     got_params, got_opt, got_losses = port_step.update_fn(
@@ -139,13 +141,26 @@ def test_update_phase_matches_jax_epoch_loop(jax_run, mode):
 def small_trainer(**kw):
     cfg = PPOConfig(num_envs=16, rollout_length=8, num_minibatches=2, update_epochs=2,
                     hidden=(32, 32), **kw)
-    return make_ppo_trainer(PikaZoo(EnvConfig(winning_score=2)), cfg)
+    return make_ppo_trainer(PikaZoo(EnvConfig(winning_score=2)), cfg, device="cpu")
 
 
-@pytest.mark.parametrize("mode", ["fm", "off"])
-def test_train_step_smoke(mode):
-    init_fn, train_step, _ = small_trainer(fused_update=mode)
-    assert train_step.provenance["fused_update"] == ("fm" if mode == "fm" else "autograd")
+# (config, the minibatch gradient it resolves to on the CPU)
+SMOKE = {
+    "fm": (dict(fused_update="fm"), "fm"),
+    "off": (dict(fused_update="off"), "autograd"),
+    "on": (dict(fused_update="on"), "row"),
+    "fm+int8": (dict(fused_update="fm", update_quant="int8"), "fm"),
+    "fm+int8fwd": (dict(fused_update="fm", update_quant="int8fwd"), "fm"),
+    "fm+bwd_bf16": (dict(fused_update="fm", update_bwd_bf16=True), "fm"),
+    "shuffle": (dict(fused_update="fm", shuffle_minibatches=True), "fm"),
+}
+
+
+@pytest.mark.parametrize("case", list(SMOKE))
+def test_train_step_smoke(case):
+    kw, resolved = SMOKE[case]
+    init_fn, train_step, _ = small_trainer(**kw)
+    assert train_step.provenance["fused_update"] == resolved
     runner = init_fn(1)
     start = {k: v.clone() for k, v in runner.params.items()}
     for update in range(2):
@@ -166,31 +181,67 @@ def test_vs_ai_learner_seat_and_anneal():
     cfg = PPOConfig(num_envs=16, rollout_length=8, num_minibatches=2, update_epochs=1,
                     hidden=(32, 32), learner_seats="p1", anneal_updates=2)
     env = PikaZoo(EnvConfig(winning_score=2, is_player2_computer=True))
-    init_fn, train_step, _ = make_ppo_trainer(env, cfg)
+    init_fn, train_step, _ = make_ppo_trainer(env, cfg, device="cpu")
     runner, metrics = train_step(init_fn(0))
     assert np.isfinite(float(metrics.total_loss))
     assert int(runner.opt_state.count) == 2
 
 
-@pytest.mark.parametrize("kw,error", [
-    (dict(fused_update="on"), "K4"),
-    (dict(update_quant="int8"), "int8"),
-    (dict(shuffle_minibatches=True), "shuffle"),
-])
-def test_unported_options_raise(kw, error):
-    with pytest.raises(NotImplementedError, match=error):
-        small_trainer(**kw)
+@pytest.mark.parametrize("mode", ["off", "on", "auto"])
+def test_quant_requires_feature_major(mode):
+    """K1's precision modes with any other resolution raise, as in JAX
+    ("auto" resolves to autograd on the CPU)."""
+    with pytest.raises(ValueError, match="feature-major"):
+        small_trainer(fused_update=mode, update_quant="int8")
+    with pytest.raises(ValueError, match="feature-major"):
+        small_trainer(fused_update=mode, update_bwd_bf16=True)
+
+
+def test_int8_mode_checks_at_build():
+    with pytest.raises(ValueError, match="tanh"):
+        small_trainer(fused_update="fm", update_quant="int8", activation="relu")
+    with pytest.raises(ValueError, match="unknown quant"):
+        small_trainer(fused_update="fm", update_quant="int4")
+
+
+def test_shuffle_applies_one_permutation_from_the_runner_generator():
+    """train_step with the shuffle equals its phases run by hand: the
+    rollout's uniforms, then one ``randperm`` of the time axis from the same
+    generator, applied to the trajectory, advantages and targets before the
+    minibatch split."""
+    init_fn, train_step, _ = small_trainer(fused_update="fm", shuffle_minibatches=True)
+    runner = init_fn(4)
+    gen = torch.Generator().manual_seed(0)
+    gen.set_state(runner.key.get_state())
+    frames, columns = 8, 2 * 16    # small_trainer's rollout_length, 2 * num_envs
+    uniforms = torch.rand((frames, 1, columns), generator=gen)
+    (_, last_norm), traj = train_step.rollout_fn(
+        runner.params, runner.env_state, runner.last_obs, uniforms)
+    _, last_value = apply_fm(runner.params, last_norm)
+    adv, targets = gae_associative(traj.value, traj.reward, traj.done, last_value,
+                                   0.99, 0.95)
+    probe = torch.Generator().manual_seed(0)
+    probe.set_state(gen.get_state())
+    perm = torch.randperm(frames, generator=probe)
+    assert not torch.equal(perm, torch.arange(frames))
+    shuffled = train_step.shuffle_fn((traj, adv, targets), gen)
+    assert torch.equal(shuffled[1], adv[perm]) and torch.equal(shuffled[2], targets[perm])
+    assert all(torch.equal(a, b[perm]) for a, b in zip(shuffled[0], traj))
+    want_params, _, _ = train_step.update_fn(runner.params, runner.opt_state, *shuffled)
+    got, _ = train_step(runner)
+    for k in want_params:
+        assert torch.equal(got.params[k], want_params[k]), k
 
 
 def test_mesh_raises():
     with pytest.raises(NotImplementedError, match="mesh"):
-        make_ppo_trainer(PikaZoo(), PPOConfig(), mesh=object())
+        make_ppo_trainer(PikaZoo(), PPOConfig(), device="cpu", mesh=object())
 
 
 def test_cli_writes_metrics(tmp_path, capsys):
     path = tmp_path / "metrics.jsonl"
     port_run.main(["--num-envs", "8", "--rollout-length", "8", "--updates", "2",
-                   "--metrics", str(path)])
+                   "--metrics", str(path), "--device", "cpu"])
     lines = [json.loads(line) for line in path.read_text().splitlines()]
     assert lines[0]["provenance"]["fused_update"] == "autograd"
     assert [row["update"] for row in lines[1:]] == [0, 1]
