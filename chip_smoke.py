@@ -12,8 +12,11 @@ per launch), compares a card trajectory with a CPU trajectory leaf by leaf,
 and trains: the self-play PPO learner through ``make_ppo_trainer`` at full
 width, its minibatch gradients in the fused kernel K1 (bf16), then in the
 row-major kernel K4 and in K1's int8, int8fwd and bf16-backward modes, each
-of those held against its plain version first.  Every phase prints at least
-one line; any failure raises and the script exits non-zero.  The line
+of those held against its plain version first; then runs the three probe
+tools (the flat landing sims of the compaction probe, the products-only
+floor of K1, the feature-major prototype), each kernel held against its
+plain version and each tool driven through its ``main``.  Every phase
+prints at least one line; any failure raises and the script exits non-zero.  The line
 before the last lists every kernel with its launches on the main path, its
 error against its plain version, its time, its plain version's time and its
 bound; the last line is a JSON object naming the device.  Without a CUDA
@@ -37,6 +40,8 @@ from pikazoo_tpu_torch.core import fused_step, predict, predict_cuda
 from pikazoo_tpu_torch.core.predict import landing_sims_any
 from pikazoo_tpu_torch.envs import OBS_HIGH, OBS_LOW
 from pikazoo_tpu_torch.envs.pika_volley import EnvState
+from pikazoo_tpu_torch.tools import compaction_probe, fm_kernel_probe, fm_roofline
+from pikazoo_tpu_torch.tools._timing import HOLD_CYCLES
 from pikazoo_tpu_torch.train import PPOConfig, make_ppo_trainer, ppo
 from pikazoo_tpu_torch.train import fused_update
 from pikazoo_tpu_torch.train.fused_update import fused_ppo_grads, fused_ppo_grads_fm
@@ -125,9 +130,14 @@ def count_landing_iterations(fn):
     return out, total[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` on the card, by CUDA events."""
+def cuda_ms(fn, reps: int, hold: bool = False) -> float:
+    """Mean milliseconds of ``fn()`` on the card, by CUDA events.  With
+    ``hold`` the stream is held first while the host queues the calls, so a
+    kernel shorter than its launch's host work is timed alone (the probe
+    tools' clock, ``pikazoo_tpu_torch/tools/_timing.py``)."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -224,6 +234,9 @@ def zero_counts():
     fused_rollout.launches = 0
     fused_update.zero_fm_counts()
     fused_ppo_grads.launches = 0
+    compaction_probe.flat_sims.launches = 0
+    fm_roofline.zero_counts()
+    fm_kernel_probe.fm_grads.launches = 0
 
 
 def build_all(card: str):
@@ -234,7 +247,8 @@ def build_all(card: str):
         return lib._name, time.perf_counter() - t0
 
     libraries = (predict_cuda._library, fused_step._library, fused_update._library,
-                 fused_update._library_rm)
+                 fused_update._library_rm, compaction_probe._library, fm_roofline._library,
+                 fm_kernel_probe._library)
     with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
         builds = [pool.submit(timed_build, b) for b in libraries]
         for future in builds:
@@ -374,6 +388,12 @@ VS_AI = PPOConfig(num_envs=8192, rollout_length=128, num_minibatches=8,
 # K1's modes other than bf16: (kernels-line name, keywords, tolerance).
 K1_MODES = {"int8": dict(quant="int8"), "int8fwd": dict(quant="int8fwd"),
             "bwd_bf16": dict(bwd_bf16=True)}
+# P3 keeps dvalue in f32 where K1 rounds it to bf16; a kernel that rounded it
+# would sit ~1e-4 off its plain version on the leaves the value head reaches
+# (tests/test_torch_fm_kernel_probe.py), inside BF16_TOL.  This bound on
+# those leaves tells the two apart.
+P3_VALUE_PATH = ("dW1", "db1", "dW2", "db2", "dWv", "dbv")
+P3_VALUE_PATH_REL = 2e-5
 
 
 def k1_inputs(frames: int, cols: int, activation: str, seed: int):
@@ -587,6 +607,175 @@ def time_learner_phases(runner, train_step, cfg: PPOConfig, card: str, phase: in
     print(f"phase {phase} update phases (CUDA events): rollout {rollout:.1f} ms, GAE "
           f"{gae:.2f} ms, update {update:.1f} ms ({cfg.update_epochs * cfg.num_minibatches}"
           f" {kernel} calls); rollout share {rollout / total:.1%} [{card}]")
+
+# The probe tools (phases 13-15).
+P2_FULL = (32, 131072)    # the JAX probes' minibatch: T=32 frames x 2B = 131072 columns
+P3_RAGGED = (3, 1000)
+P1_ROLL_FRAMES = 128      # AI frames before the P1 tool's live states
+RULES = {True: "full rule", False: "mistake rule"}
+
+
+def compare_flat(name: str, lanes) -> int:
+    """The flat kernel vs its plain version on the same card lanes, under
+    both rules; raises unless bit-equal.  Returns the largest absolute
+    difference (0)."""
+    err = 0
+    for rule, rule_name in RULES.items():
+        got = compaction_probe.flat_sims(*lanes, rule)
+        want = compaction_probe.flat_sims_plain(*lanes, rule)
+        torch.cuda.synchronize()
+        err = max(err, int((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"flat_sims != plain on {name}, {rule_name}: max |diff| {err}")
+    print(f"phase 13 flat_sims vs plain [{name}]: n={lanes[0].numel()} bit-equal under both rules")
+    return err
+
+
+def probe_p1(live, card: str):
+    """P1 on the card: bit-equal cases, the composed lanes against K2, the
+    ETA-sorted check, kernel and plain times on the candidate lanes of the
+    live states (the larger call; the kernel timed with the stream held, and
+    K2 on the same states both ways beside it), and the tool's main (stages
+    kern and prim) with the counts from 0.  Returns (err, ms, plain_ms,
+    bound, launches)."""
+    device = live[0].device
+    cand = tuple(v.contiguous() for v in compaction_probe.candidate_lanes(*live))
+    err = compare_flat("random states", random_ball_states(AI_BATCH, 2, device))
+    err = max(err, compare_flat("net-trap cases", tuple(
+        torch.tensor(c, device=device) for c in NET_TRAP_CASES.T.copy())))
+    err = max(err, compare_flat(f"AI self-play frame {HARVEST_FRAME}, true lanes", live))
+    err = max(err, compare_flat(f"AI self-play frame {HARVEST_FRAME}, candidate lanes", cand))
+    compaction_probe.check_lanes(live)
+    print(f"phase 13 flat natural == landing_sims_batched (expected, 6 candidates) and "
+          f"ETA-sorted == permuted natural, B={AI_BATCH} frame-{HARVEST_FRAME} states")
+    timed = {}
+    for label, lanes, rule in (("true lanes, full rule", live, True),
+                               ("candidate lanes, mistake rule", cand, False)):
+        kernel = lambda: compaction_probe.flat_sims(*lanes, rule)
+        plain = lambda: compaction_probe.flat_sims_plain(*lanes, rule)
+        kernel(), plain()
+        p1, k1, k2, p2 = (cuda_ms(plain, 2), cuda_ms(kernel, 50, hold=True),
+                          cuda_ms(kernel, 50, hold=True), cuda_ms(plain, 2))
+        _, iters = count_landing_iterations(plain)
+        b = bound(5 * 4 * lanes[0].numel(), {"int32": int(iters.sum()) * LANDING_ITERATION_OPS})
+        timed[rule] = (min(k1, k2), min(p1, p2), b)
+        print(f"phase 13 time [{label}] n={lanes[0].numel()}: kernel {k1:.4f} / {k2:.4f} ms "
+              f"(stream held), plain {p1:.3f} / {p2:.3f} ms; bound {b[0]:.5f} ms by {b[1]} "
+              f"({int(iters.sum())} lane iterations) [{card}]")
+    k2_call = lambda: predict_cuda.landing_sims_batched(*live)
+    print(f"phase 13 time K2 on the same states: {cuda_ms(k2_call, 50):.4f} ms as phase 3 "
+          f"times it, {cuda_ms(k2_call, 50, hold=True):.4f} ms with the stream held [{card}]")
+    zero_counts()
+    for stage in ("kern", "prim"):
+        if compaction_probe.main(["--stage", stage, "--batch", str(AI_BATCH), "--roll-frames",
+                                  str(P1_ROLL_FRAMES), "--chain", "16", "--iters", "3"]):
+            raise AssertionError(f"compaction_probe stage {stage} failed")
+    launches = compaction_probe.flat_sims.launches
+    if launches == 0:
+        raise AssertionError("the compaction probe's main launched no flat_sims")
+    print(f"phase 13 compaction_probe main: flat_sims launches {launches} [{card}]")
+    return (err, *timed[False], launches)
+
+
+def hold_leaves(label: str, names, fn, plain, card: str, phase: int, value_path=()):
+    """Kernel vs plain on the same card tensors, leaf by leaf: relative L2 <=
+    BF16_TOL's and cos >= its (and relative L2 <= P3_VALUE_PATH_REL on the
+    leaves named in ``value_path``), two launches bit-identical.  Returns the
+    largest absolute difference."""
+    _, rel_l2, min_cos = BF16_TOL
+    got, got2, want = fn(), fn(), plain()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, got2)):
+        raise AssertionError(f"{label}: two launches on the same inputs differ")
+    worst_rel, worst_cos, err = 0.0, 1.0, 0.0
+    for name, g, w in zip(names, got, want):
+        g, w = g.double().flatten(), w.double().flatten()
+        rel = float((g - w).norm() / w.norm())
+        cos = float(g @ w / (g.norm() * w.norm()))
+        if not (rel <= rel_l2 and cos >= min_cos) or (name in value_path
+                                                      and rel > P3_VALUE_PATH_REL):
+            raise AssertionError(f"{label}: {name} relative L2 {rel:.3e}, cos {cos:.8f}")
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+        err = max(err, float((g - w).abs().max()))
+    print(f"phase {phase} {label} vs plain: worst leaf relative L2 {worst_rel:.3e} cos "
+          f"{worst_cos:.8f}, max |diff| {err:.3e}, two launches bit-identical [{card}]")
+    return got, want, err
+
+
+def mm_bound(rows: int, f: int = 35, h: int = 256, a: int = 18):
+    """(bound_ms, bound_by) of the eight products over ``rows`` columns: obs
+    read and the three dW written once, weights read once, bf16 operations."""
+    ops = 2 * (2 * f * h + 3 * h * h + 3 * h * a)
+    nbytes = rows * f * 2 + (f * h + h * h + h * a) * (2 + 4)
+    return bound(nbytes, {"bf16": rows * ops})
+
+
+def probe_p2(card: str):
+    """P2 on the card at the JAX probe's size: both orders vs plain, the
+    times of kernel, plain, K1 bf16 on the same inputs and the eight
+    torch.matmul calls, and the tool's main with the counts from 0.
+    Returns (err, ms, plain_ms, bound, launches)."""
+    obs, W1, W2, Wp = fm_roofline.make_inputs(*P2_FULL, 0, "cuda")
+    names = ("dW1", "dW2", "dWp")
+    plain = lambda: fm_roofline.mm_grads_plain(obs, W1, W2, Wp)
+    err, ms = 0.0, {}
+    for variant in fm_roofline.VARIANTS:
+        kernel = lambda: fm_roofline.mm_grads(obs, W1, W2, Wp, phased=variant == "phased")
+        err = max(err, hold_leaves(f"mm_grads {variant} [T=32 N=131072]", names, kernel, plain,
+                                   card, 14)[2])
+        ms[variant] = time_grads(f"mm_grads {variant}", kernel, plain, (), {}, card, 14)
+    k1_args = fm_roofline.k1_inputs(obs, W1, W2, Wp, 1)
+    k1_ms = min(cuda_ms(lambda: fused_ppo_grads_fm(*k1_args, **fm_roofline.K1_KW), 5)
+                for _ in range(2))
+    x_all = obs.permute(1, 0, 2).reshape(obs.shape[1], -1)
+    bw = [w.to(torch.bfloat16) for w in (W1, W2, Wp)]
+    mm_ms = min(cuda_ms(lambda: fm_roofline.matmul_sequence(x_all, *bw), 5) for _ in range(2))
+    del x_all
+    b = mm_bound(P2_FULL[0] * P2_FULL[1])
+    chain, plain_ms = ms["chain"][0], min(ms["chain"][1], ms["phased"][1])
+    print(f"phase 14 time K1 bf16 on the same obs and weights {k1_ms:.3f} ms = products "
+          f"{chain:.3f} ms ({chain / k1_ms:.1%}) + the rest {k1_ms - chain:.3f} ms; 8 torch.matmul "
+          f"calls {mm_ms:.3f} ms; bound {b[0]:.4f} ms by {b[1]} [{card}]")
+    zero_counts()
+    if fm_roofline.main(["--steps", "2", "--iters", "2"]):
+        raise AssertionError("fm_roofline main failed")
+    launches = fm_roofline.mm_grads.launches
+    if not all(fm_roofline.mm_grads.launches_by_variant.values()):
+        raise AssertionError(f"fm_roofline main: launches {fm_roofline.mm_grads.launches_by_variant}")
+    print(f"phase 14 fm_roofline main: mm_grads launches "
+          f"{fm_roofline.mm_grads.launches_by_variant} [{card}]")
+    return err, chain, plain_ms, b, launches
+
+
+def probe_p3(card: str):
+    """P3 on the card: kernel vs plain at the JAX probe's size and ragged,
+    losses within BF16_TOL's rtol, grads as phase 14 plus the value path,
+    the times, and the tool's main (check and bench) with the counts from
+    0.  Returns (err, ms, plain_ms, bound, launches)."""
+    names = fm_kernel_probe.LABELS
+    err, timed = 0.0, None
+    for label, size, seed in (("T=32 N=131072", P2_FULL, 1), ("ragged T=3 N=1000", P3_RAGGED, 2)):
+        args = fm_kernel_probe.make_inputs(*size, seed, "cuda")
+        kernel = lambda: fm_kernel_probe.fm_grads(*args)
+        plain = lambda: fm_kernel_probe.fm_grads_plain(*args)
+        got, want, e = hold_leaves(f"fm_grads [{label}]", names, kernel, plain, card, 15,
+                                   value_path=P3_VALUE_PATH)
+        if not torch.allclose(got[8], want[8], rtol=BF16_TOL[0], atol=LOSS_ATOL):
+            raise AssertionError(f"fm_grads [{label}]: loss sums {got[8].tolist()} vs plain "
+                                 f"{want[8].tolist()}")
+        # The loss sums as means (K1's entries compare means).
+        err = max(err, e, float((got[8] - want[8]).abs().max()) / (size[0] * size[1]))
+        if timed is None:
+            timed = time_grads(f"fm_grads {label}", kernel, plain, (), {}, card, 15)
+        del args, got, want
+    zero_counts()
+    if fm_kernel_probe.main(["--frames", "8", "--steps", "4", "--iters", "2"]):
+        raise AssertionError("fm_kernel_probe main: the check against autograd failed")
+    launches = fm_kernel_probe.fm_grads.launches
+    if launches == 0:
+        raise AssertionError("fm_kernel_probe main launched no fm_grads")
+    print(f"phase 15 fm_kernel_probe main: fm_grads launches {launches} [{card}]")
+    return (err, *timed, grad_bound(P2_FULL[0] * P2_FULL[1]), launches)
 
 
 def main() -> int:
@@ -809,6 +998,12 @@ def main() -> int:
             time_learner_phases(runner, train_step, cfg, card, phase=12)
         del runner, train_step
 
+    # Phases 13-15: the probe tools, each kernel against its plain version,
+    # each tool's main with the counts from 0.
+    p1 = probe_p1(live, card)
+    p2 = probe_p2(card)
+    p3 = probe_p3(card)
+
     ms, plain_ms, k2_bound = timed[f"AI self-play frame {HARVEST_FRAME}"]
     rows = K1_FULL[0] * K1_FULL[1]
     entries = [
@@ -828,6 +1023,11 @@ def main() -> int:
     entries.append(("fused_ppo_grads", "fused_update_rm.cu",
                     "pikazoo_tpu/train/fused_update.py:651", k4_launches, k4_err, k4_ms,
                     k4_plain_ms, grad_bound(rows)))
+    for name, source, replaces, (e, t, tp, b, n) in (
+            ("flat_sims", "flat_sims.cu", "tools/compaction_probe.py:102", p1),
+            ("mm_grads", "fm_roofline.cu", "tools/fm_roofline.py:95", p2),
+            ("fm_grads", "fm_kernel_probe.cu", "tools/fm_kernel_probe.py:185", p3)):
+        entries.append((name, source, replaces, n, e, t, tp, b))
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
