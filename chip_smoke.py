@@ -42,6 +42,7 @@ from pikazoo_tpu_torch.envs import OBS_HIGH, OBS_LOW
 from pikazoo_tpu_torch.envs.pika_volley import EnvState
 from pikazoo_tpu_torch.tools import compaction_probe, fm_kernel_probe, fm_roofline
 from pikazoo_tpu_torch.tools._timing import HOLD_CYCLES
+from pikazoo_tpu_torch.tools.k1_precision_probe import float64_plain
 from pikazoo_tpu_torch.train import PPOConfig, make_ppo_trainer, ppo
 from pikazoo_tpu_torch.train import fused_update
 from pikazoo_tpu_torch.train.fused_update import fused_ppo_grads, fused_ppo_grads_fm
@@ -247,7 +248,7 @@ def build_all(card: str):
         return lib._name, time.perf_counter() - t0
 
     libraries = (predict_cuda._library, fused_step._library, fused_update._library,
-                 fused_update._library_rm, compaction_probe._library, fm_roofline._library,
+                 fused_update._library_bf16, fused_update._library_rm, compaction_probe._library, fm_roofline._library,
                  fm_kernel_probe._library)
     with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
         builds = [pool.submit(timed_build, b) for b in libraries]
@@ -377,6 +378,12 @@ HIDDEN = (256, 256)
 # held to it.
 LOSS_ATOL = 1e-6
 BF16_TOL = (1e-4, 1e-3, 0.99999)
+# K1 bf16's kernel B against its plain version on the same bf16 operands:
+# only the order of the f32 sums of exact products differs.
+K1_DW_REL = 1e-5
+# K1 bf16 at full width may sit at most this many times as far from a
+# float64 plain version as the plain version does.
+K1_F64_RATIO = 2.0
 LEARNER = PPOConfig(num_envs=65536, rollout_length=128, num_minibatches=4,
                     update_epochs=4, hidden=HIDDEN)
 LEARNER_UPDATES = 3
@@ -459,6 +466,119 @@ def compare_grads(label: str, fn, plain, args, kw, tol, card: str, phase: int):
           f"{worst_rel:.3e} cos {worst_cos:.8f}, max |diff| {err:.3e}, two launches "
           f"bit-identical [{card}]")
     return err
+
+
+def operand_distance(got: torch.Tensor, want: torch.Tensor):
+    """(relative L2, cos) of two tensors, summed in float64 a frame at a
+    time for K1 bf16's (rows, T, N) workspace operands."""
+    got, want = (x.reshape(x.shape[0], -1, x.shape[-1]) for x in (got, want))
+    dd = gg = ww = gw = 0.0
+    for t in range(got.shape[1]):
+        g, w = got[:, t].double(), want[:, t].double()
+        dd += float((g - w).square().sum())
+        gg += float(g.square().sum())
+        ww += float(w.square().sum())
+        gw += float((g * w).sum())
+    return (dd / max(ww, 1e-300)) ** 0.5, gw / max((gg * ww) ** 0.5, 1e-300)
+
+
+def hold_k1_split(label: str, args, kw, card: str):
+    """K1 bf16's two kernels, each against its plain version on the card:
+    kernel A (``k1_chain``, the whole minibatch) against ``k1_chain_plain``,
+    its operands and bias grads within BF16_TOL's relative L2 and cos and
+    its loss sums (as means) within its rtol; then kernel B (``k1_dw``) on
+    kernel A's own operands against ``k1_dw_plain`` on the same operands,
+    each dW within K1_DW_REL.  Raises on the first miss.  (The kernels line's
+    error stays the whole call's: an operand's error is a bf16 rounding
+    flip, one ulp of the operand.)"""
+    loss_rtol, rel_l2, min_cos = BF16_TOL
+    got = fused_update.k1_chain(*args, **kw)
+    want = fused_update.k1_chain_plain(*args, **kw)
+    torch.cuda.synchronize()
+    L = len(got.hs)
+    pairs = [*[(f"h{l}", got.hs[l], want.hs[l]) for l in range(L)],
+             ("dheads", got.dheads, want.dheads),
+             *[(f"dpre{l}", got.dpres[l], want.dpres[l]) for l in range(L)],
+             *[(f"db{l}", got.db[l][:, None, None], want.db[l][:, None, None]) for l in range(L)],
+             ("dbpv", got.dbpv[:, None, None], want.dbpv[:, None, None])]
+    worst_rel, worst_cos = 0.0, 1.0
+    for name, g, w in pairs:
+        rel, cos = operand_distance(g, w)
+        if not (rel <= rel_l2 and cos >= min_cos):
+            raise AssertionError(f"kernel A [{label}]: {name} relative L2 {rel:.3e}, cos {cos:.8f}")
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+    inv_m = 1.0 / args[2].numel()
+    if not torch.allclose(got.sums * inv_m, want.sums * inv_m, rtol=loss_rtol, atol=LOSS_ATOL):
+        raise AssertionError(f"kernel A [{label}]: loss sums {got.sums.tolist()} vs plain "
+                             f"{want.sums.tolist()}")
+    del want
+    obs = args[1]
+    dw, dwpv = fused_update.k1_dw(got, obs)
+    dw_p, dwpv_p = fused_update.k1_dw_plain(got, obs)
+    torch.cuda.synchronize()
+    rels = {name: float((g.double() - w.double()).norm() / w.double().norm())
+            for name, g, w in [*[(f"dW{l}", dw[l], dw_p[l]) for l in range(L)],
+                               ("dWpv", dwpv, dwpv_p)]}
+    worst_dw = max(rels, key=rels.get)
+    if rels[worst_dw] > K1_DW_REL:
+        raise AssertionError(f"kernel B [{label}]: {worst_dw} relative L2 {rels[worst_dw]:.3e} "
+                             f"> {K1_DW_REL}")
+    shape = "x".join(str(d) for d in obs.shape)
+    print(f"phase 9 K1 bf16 kernel A vs k1_chain_plain [{label}], obs {shape}, "
+          f"{kw['activation']}: worst operand / bias grad relative L2 {worst_rel:.3e} cos "
+          f"{worst_cos:.8f}, loss sums {got.sums.tolist()}; kernel B vs k1_dw_plain on kernel "
+          f"A's operands: worst {worst_dw} relative L2 {rels[worst_dw]:.3e} [{card}]")
+
+
+def k1_split_floor(rows: int, f: int = 35, num_actions: int = 18):
+    """(ms, bytes) of the split design's own floor by bytes at HIDDEN: kernel
+    A reads the observations and the 5 per-column inputs and writes the
+    workspace; kernel B reads the workspace and the observations again."""
+    ws = 2 * (2 * sum(HIDDEN) + fused_update.HEAD_PAD)
+    nbytes = rows * (f * 2 + 5 * 4 + ws + ws + f * 2)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def k1_split_times(args, kw, card: str, k1_ms: float):
+    """CUDA-event ms of kernel A alone and kernel B alone over the wrapper's
+    own chunks (min of two readings of 5 calls), beside the whole call's."""
+    params, obs, action, *scalars = args
+    t_mb, _, n = obs.shape
+    inv_m = 1.0 / (t_mb * n)
+    run = lambda stages: fused_update._run_bf16(
+        params, obs, action, scalars, num_actions=kw["num_actions"],
+        activation=kw["activation"], clip_eps=kw["clip_eps"], value_coef=kw["value_coef"],
+        entropy_coef=kw["entropy_coef"], inv_m=inv_m,
+        chunk=fused_update.chunk_frames(t_mb, n), stages=stages)
+    a_ms = min(cuda_ms(lambda: run(fused_update.STAGE_CHAIN), 5) for _ in range(2))
+    b_ms = min(cuda_ms(lambda: run(fused_update.STAGE_DW), 5) for _ in range(2))
+    floor_ms, nbytes = k1_split_floor(t_mb * n)
+    b = grad_bound(t_mb * n)
+    print(f"phase 9 time K1 bf16 split T={t_mb} N={n}: call {k1_ms:.3f} ms = kernel A "
+          f"{a_ms:.3f} ms ({a_ms / k1_ms:.1%}) + kernel B {b_ms:.3f} ms ({b_ms / k1_ms:.1%}); "
+          f"chunks of {fused_update.chunk_frames(t_mb, n)} frame(s), "
+          f"{2 * -(-t_mb // fused_update.chunk_frames(t_mb, n))} launches of A and B; the "
+          f"design's floor by bytes {floor_ms:.3f} ms ({nbytes / 1e9:.2f} GB), the function's "
+          f"bound {b[0]:.3f} ms by {b[1]} [{card}]")
+
+
+def hold_k1_float64(args, kw, card: str):
+    """At full width: the worst grad leaf's distance from a float64 plain
+    version, of the kernel and of the plain version; raises unless the
+    kernel's is at most K1_F64_RATIO times the plain version's (one-signed
+    drift in kernel B's long sums would put it further)."""
+    exact = float64_plain(args, kw)
+    got, _ = fused_ppo_grads_fm(*args, **kw)
+    plain, _ = fused_update.fused_ppo_grads_fm_plain(*args, **kw)
+    torch.cuda.synchronize()
+    dist = lambda g: max((float((g[k].double() - exact[k].double()).norm()
+                                / exact[k].double().norm()), k) for k in exact)
+    kd, pd = dist(got), dist(plain)
+    if kd[0] > K1_F64_RATIO * pd[0]:
+        raise AssertionError(f"K1 bf16 {kd[0]:.3e} ({kd[1]}) from float64, plain {pd[0]:.3e}: "
+                             f"more than {K1_F64_RATIO}x")
+    print(f"phase 9 K1 bf16 vs a float64 plain version: kernel worst leaf {kd[0]:.3e} ({kd[1]}), "
+          f"plain {pd[0]:.3e} ({pd[1]}), ratio {kd[0] / pd[0]:.3f} <= {K1_F64_RATIO} [{card}]")
 
 
 def chains_apart(args, kw, card: str):
@@ -733,9 +853,10 @@ def probe_p2(card: str):
     del x_all
     b = mm_bound(P2_FULL[0] * P2_FULL[1])
     chain, plain_ms = ms["chain"][0], min(ms["chain"][1], ms["phased"][1])
-    print(f"phase 14 time K1 bf16 on the same obs and weights {k1_ms:.3f} ms = products "
-          f"{chain:.3f} ms ({chain / k1_ms:.1%}) + the rest {k1_ms - chain:.3f} ms; 8 torch.matmul "
-          f"calls {mm_ms:.3f} ms; bound {b[0]:.4f} ms by {b[1]} [{card}]")
+    print(f"phase 14 time K1 bf16 (fused_update_bf16.cu) on the same obs and weights "
+          f"{k1_ms:.3f} ms; the products alone in the one-kernel design of fused_update.cu "
+          f"(P2 chain) {chain:.3f} ms; 8 torch.matmul calls {mm_ms:.3f} ms; bound {b[0]:.4f} ms "
+          f"by {b[1]} [{card}]")
     zero_counts()
     if fm_roofline.main(["--steps", "2", "--iters", "2"]):
         raise AssertionError("fm_roofline main failed")
@@ -905,6 +1026,13 @@ def main() -> int:
         dict(K1_KW, activation="relu"), BF16_TOL, card, 9))
     k1_ms, k1_plain_ms = time_grads("K1 T=32 N=131072", fused_ppo_grads_fm, plain_fm, full,
                                     tanh_kw, card, 9)
+    # K1 bf16's two kernels, each against its plain version; its distance
+    # from float64; A's and B's share of the call.
+    hold_k1_split("full width", full, tanh_kw, card)
+    hold_k1_split("ragged", k1_inputs(3, 1000, "relu", 22), dict(K1_KW, activation="relu"),
+                  card)
+    hold_k1_float64(full, tanh_kw, card)
+    k1_split_times(full, tanh_kw, card, k1_ms)
 
     # Phase 10: the learner through its entry points at full width.  The
     # symmetric self-play run is the main path of K1; its first minibatch is
@@ -1011,7 +1139,7 @@ def main() -> int:
          launches, err, ms, plain_ms, k2_bound),
         ("fused_rollout", "fused_step.cu", "pikazoo_tpu/core/fused_step.py:200",
          fused_launches, fused_err, fused_ms, fused_plain_ms, fused_bound),
-        ("fused_ppo_grads_fm", "fused_update.cu", "pikazoo_tpu/train/fused_update.py:504",
+        ("fused_ppo_grads_fm", "fused_update_bf16.cu", "pikazoo_tpu/train/fused_update.py:504",
          k1_launches, k1_err, k1_ms, k1_plain_ms, grad_bound(rows)),
     ]
     for name in K1_MODES:

@@ -1,9 +1,12 @@
 // The fused clipped-PPO minibatch gradient, feature-major (K1), for Hopper.
 //
 // Replaces the TPU kernel pikazoo_tpu/train/fused_update.py:504
-// `fused_ppo_grads_fm` (kernel body `_fm_kernel`, :244; pallas_call :618),
-// all its modes: bf16, the bf16 backward chain (`bwd_bf16`), and the int8
-// modes `int8fwd` and `int8`.  Python side:
+// `fused_ppo_grads_fm` (kernel body `_fm_kernel`, :244; pallas_call :618)
+// in its modes the bf16 backward chain (`bwd_bf16`), and the int8 modes
+// `int8fwd` and `int8`.  The default bf16 mode runs fused_update_bf16.cu
+// (two kernels: the per-tile chain and the long-K dW products); its
+// template instance here (Q_NONE, no bwd_bf16) is no longer launched.
+// Python side:
 // pikazoo_tpu_torch/train/fused_update.py, which also holds the plain PyTorch
 // version this kernel is held against.  Device code shared with K4 (the
 // row-major kernel, fused_update_rm.cu) is in ppo_grads.cuh.

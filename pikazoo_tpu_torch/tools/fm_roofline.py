@@ -5,8 +5,10 @@ Counterpart of the JAX package's ``tools/fm_roofline.py``: K1's eight
 products with the loss and every elementwise step stripped to bare casts
 (no bias, no activation; the upstream gradient is the rounded logits), in
 K1's own design (``csrc/fm_roofline.cu``: K1's 64-column tile, its WMMA
-products and its per-block partials).  K1's time minus this one is what its
-loss, activations and row sums cost; this one is K1's floor in K1's design.
+products and its per-block partials): the floor of the one-kernel design
+of ``csrc/fused_update.cu``, which K1's int8 and bf16-chain modes still run.
+K1's bf16 mode now runs the split design of ``csrc/fused_update_bf16.cu``,
+timed beside it.
 
     python3 -m pikazoo_tpu_torch.tools.fm_roofline
     python3 -m pikazoo_tpu_torch.tools.fm_roofline --device cpu --frames 2 --cols 1024 \\
@@ -241,8 +243,8 @@ def run(opts, device, clock) -> Dict[str, float]:
               f"min of {opts.iters}", flush=True)
     k1 = ms["K1 bf16 (fused_ppo_grads_fm)"]
     floor = min(ms[f"mm-only {v}"] for v in VARIANTS)
-    print(f"[2] K1 bf16 {k1:.3f} ms = products {floor:.3f} ms ({floor / k1:.1%}) + the rest "
-          f"{k1 - floor:.3f} ms (loss, activations, row sums)", flush=True)
+    print(f"[2] K1 bf16 (split design) {k1:.3f} ms; the products alone in the one-kernel "
+          f"design {floor:.3f} ms ({k1 / floor:.1%} of it)", flush=True)
     return ms
 
 

@@ -8,8 +8,9 @@ of one minibatch.  K1 takes the minibatch in its ``(T, 2B)`` shape with the
 observations feature-major ``(T, F, 2B)`` bf16, as the rollout stores them;
 K4 takes it flattened to rows, observations ``(M, F)`` bf16.
 
-A CUDA minibatch runs a hand-written Hopper kernel (``csrc/fused_update.cu``
-for K1, ``csrc/fused_update_rm.cu`` for K4, built by
+A CUDA minibatch runs hand-written Hopper kernels (for K1 ``csrc/fused_update_bf16.cu``
+in the bf16 mode and ``csrc/fused_update.cu`` in the others,
+``csrc/fused_update_rm.cu`` for K4, built by
 ``pikazoo_tpu_torch._build`` at first use); a CPU one runs the plain PyTorch
 version (:func:`fused_ppo_grads_fm_plain`, :func:`fused_ppo_grads_rm_plain`).
 On CUDA the kernel launches or the call raises: there is no fallback.
@@ -19,8 +20,13 @@ every product; bias add and activation in f32, then one round to bf16, and
 only that bf16 activation feeds the next layer and the activation derivative
 (``1 - h*h`` on ``float(h_bf16)``); a merged (H, A+1) head whose row A is the
 value; ``dheads`` and ``dpre`` rounded to bf16 for the products while the
-bias gradients sum their f32 values; f32 loss sums.  Its other modes, as the
-JAX kernel's branches:
+bias gradients sum their f32 values; f32 loss sums.  On the card it runs as
+two kernels over chunks of whole frames: kernel A (:func:`k1_chain`, plain
+version :func:`k1_chain_plain`) walks the columns through the forward, the
+loss and the backward chain and writes the dW products' bf16 operands to a
+workspace; kernel B (:func:`k1_dw`, plain version :func:`k1_dw_plain`)
+computes each dW from them as one product over the columns.  Its other
+modes, as the JAX kernel's branches:
 
 - ``bwd_bf16=True``: the hidden gradient chain in bf16 arithmetic
   (``dh_b = bf16(dot)``, ``dpre_b = dh_b * (1 - h*h)`` op by op in bf16, bias
@@ -43,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -51,8 +57,14 @@ from pikazoo_tpu_torch import _build
 from pikazoo_tpu_torch.train.networks import BF16, Params, dense_layers
 
 SOURCES = ("fused_update.cu",)
+SOURCES_BF16 = ("fused_update_bf16.cu",)
 SOURCES_RM = ("fused_update_rm.cu",)
-COLS = 64        # env columns per tile of K1 (csrc/fused_update.cu)
+COLS = 64        # env columns per tile of K1 (both sources)
+DW_TILE = 128    # output rows and columns of a tile of K1 bf16's dW kernel
+# Workspace columns of one chunk of K1's bf16 mode (whole frames, at least
+# one): ~277 MB at hidden (256, 256).
+CHUNK_COLS = 131072
+DW_BLOCKS_PER_SM = 2  # resident blocks of K1 bf16's dW kernel (110 KB of shared memory each)
 ROWS_RM = 32     # rows per tile of K4 (csrc/fused_update_rm.cu)
 HEAD_PAD = 32    # K1's merged head: A+1 rows, padded
 HEAD_PAD_RM = 48  # K4's head: the policy rows padded to 32, then the value row
@@ -214,6 +226,125 @@ def _cell_dot(below: torch.Tensor, dp_q: torch.Tensor, scale: torch.Tensor,
     return (prod * scale[:, None, None]).sum(dim=0)
 
 
+def _dpre_chain(dh: torch.Tensor, hs, wf, activation: str):
+    """The bf16 backward down the hidden layers from the head's ``dh``:
+    yields ``(l, dpre, dpre_b)`` for l = L-1 .. 0, with ``dpre = dh *
+    act'(h_l)`` in f32 and ``dh_{l-1} = W_l . bf16(dpre)``."""
+    for l in range(len(hs) - 1, -1, -1):
+        dpre = dh * _dact(hs[l], activation)
+        dpre_b = dpre.to(BF16).float()
+        yield l, dpre, dpre_b
+        if l > 0:
+            dh = torch.matmul(wf[l], dpre_b)
+
+
+class K1Chain(NamedTuple):
+    """What K1's bf16 mode computes before its dW products (kernel A of
+    ``csrc/fused_update_bf16.cu``): the products' operands at the function's
+    rounding points, each (rows, T, N) bf16, and the f32 sums.  ``hs[l]`` is
+    bf16(h_l), ``dheads`` bf16(dheads) (A+1 rows: the logits', then the
+    value's), ``dpres[l]`` bf16(dpre_l); ``db[l]`` and ``dbpv`` are the f32 row
+    sums of the unrounded f32 ``dpre_l`` and ``dheads``; ``sums`` the 4 loss
+    sums."""
+    hs: List[torch.Tensor]
+    dheads: torch.Tensor
+    dpres: List[torch.Tensor]
+    db: List[torch.Tensor]
+    dbpv: torch.Tensor
+    sums: torch.Tensor
+
+
+def k1_chain_plain(params: Params, obs: torch.Tensor, action: torch.Tensor,
+                   logp_old: torch.Tensor, value_old: torch.Tensor,
+                   adv_norm: torch.Tensor, target: torch.Tensor, *,
+                   num_actions: int, activation: str, clip_eps: float,
+                   value_coef: float, entropy_coef: float,
+                   total_rows: int = 0) -> K1Chain:
+    """The plain version of kernel A of K1's bf16 mode, on any device: the
+    forward, the loss and ``dheads``, and the backward chain down to
+    ``dpre_0``, a frame and ``PLAIN_COLS`` columns at a time."""
+    _, L, w, b = dense_layers(params)
+    t_mb, _, n = obs.shape
+    inv_m = 1.0 / (total_rows or t_mb * n)
+    A = num_actions
+    wf = [x.to(BF16).float() for x in w[:L]]
+    bf = [x.float() for x in b[:L]]
+    wpv = torch.cat([w[L], w[L + 1]], dim=1).to(BF16).float()   # (H, A+1)
+    bpv = torch.cat([b[L], b[L + 1]]).float()                   # (A+1,)
+    loss_kw = dict(inv_m=inv_m, clip_eps=clip_eps, value_coef=value_coef,
+                   entropy_coef=entropy_coef)
+    new = lambda rows: torch.empty((rows, t_mb, n), dtype=BF16, device=obs.device)
+    hs_out = [new(x.shape[1]) for x in wf]
+    dpres_out = [new(x.shape[1]) for x in wf]
+    dheads_out = new(A + 1)
+    db = [torch.zeros_like(x) for x in bf]
+    dbpv = torch.zeros_like(bpv)
+    sums = torch.zeros(4, dtype=torch.float32, device=obs.device)
+    for t in range(t_mb):
+        for c0 in range(0, n, PLAIN_COLS):
+            cols = slice(c0, min(n, c0 + PLAIN_COLS))
+            h = obs[t, :, cols].float()
+            hs = []
+            for l in range(L):
+                h = _act(torch.matmul(wf[l].t(), h) + bf[l][:, None], activation).to(BF16).float()
+                hs.append(h)
+                hs_out[l][:, t, cols] = h
+            heads = torch.matmul(wpv.t(), h) + bpv[:, None]      # (A+1, C)
+            chunk_sums, dlogits, dvalue = _loss_and_dheads(
+                heads[:A], heads[A], action[t, cols], logp_old[t, cols],
+                adv_norm[t, cols], value_old[t, cols], target[t, cols], **loss_kw)
+            sums += chunk_sums
+            dheads = torch.cat([dlogits, dvalue[None]])          # (A+1, C)
+            dheads_b = dheads.to(BF16).float()
+            dheads_out[:, t, cols] = dheads_b
+            dbpv += dheads.sum(dim=1)
+            for l, dpre, dpre_b in _dpre_chain(torch.matmul(wpv, dheads_b), hs, wf,
+                                               activation):
+                dpres_out[l][:, t, cols] = dpre_b
+                db[l] += dpre.sum(dim=1)
+    return K1Chain(hs_out, dheads_out, dpres_out, db, dbpv, sums)
+
+
+def k1_dw_plain(chain: K1Chain, obs: torch.Tensor):
+    """The plain version of kernel B of K1's bf16 mode: every dW as a sum
+    over the columns of exact products of bf16 operands in f32, ``dW_l =
+    below_l . bf16(dpre_l)^T`` (``below_0`` the observations) and ``dWpv =
+    bf16(h_top) . bf16(dheads)^T``, a frame and ``PLAIN_COLS`` columns at a
+    time.  Returns (dW list, dWpv (H, A+1))."""
+    t_mb, f, n = obs.shape
+    hidden = [h.shape[0] for h in chain.hs]
+    dw = [torch.zeros((k, h), device=obs.device) for k, h in zip([f, *hidden[:-1]], hidden)]
+    dwpv = torch.zeros((hidden[-1], chain.dheads.shape[0]), device=obs.device)
+    for t in range(t_mb):
+        for c0 in range(0, n, PLAIN_COLS):
+            cols = slice(c0, min(n, c0 + PLAIN_COLS))
+            hs = [h[:, t, cols].float() for h in chain.hs]
+            dwpv += torch.matmul(hs[-1], chain.dheads[:, t, cols].float().t())
+            for l in range(len(hs) - 1, -1, -1):
+                below = hs[l - 1] if l > 0 else obs[t, :, cols].float()
+                dw[l] += torch.matmul(below, chain.dpres[l][:, t, cols].float().t())
+    return dw, dwpv
+
+
+def _plain_bf16(params: Params, obs, action, logp_old, value_old, adv_norm, target, *,
+                num_actions: int, total_rows: int, **kw):
+    """K1's bf16 mode as its two kernels compute it: the chain, then the dW
+    products, a frame at a time."""
+    names, L, _, _ = dense_layers(params)
+    total_rows = total_rows or obs.shape[0] * obs.shape[2]
+    total = None   # every dW, every bias grad, dWpv, dbpv, the loss sums
+    for t in range(obs.shape[0]):
+        frame = [x[t:t + 1] for x in (obs, action, logp_old, value_old, adv_norm, target)]
+        chain = k1_chain_plain(params, *frame, num_actions=num_actions,
+                               total_rows=total_rows, **kw)
+        dw, dwpv = k1_dw_plain(chain, frame[0])
+        parts = [*dw, *chain.db, dwpv, chain.dbpv, chain.sums]
+        total = parts if total is None else [a + b for a, b in zip(total, parts)]
+    dw, db, (dwpv, dbpv, sums) = total[:L], total[L:2 * L], total[2 * L:]
+    grads = _merged_grads(names, dw, db, dwpv, dbpv, num_actions)
+    return grads, _loss_vector(sums, 1.0 / total_rows, kw["value_coef"], kw["entropy_coef"])
+
+
 def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
                              action: torch.Tensor, logp_old: torch.Tensor,
                              value_old: torch.Tensor, adv_norm: torch.Tensor,
@@ -232,6 +363,11 @@ def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
     fits on the card at full width."""
     names, L, w, b = dense_layers(params)
     check_mode(quant, activation, L)
+    if quant == "none" and not bwd_bf16:
+        return _plain_bf16(params, obs, action, logp_old, value_old, adv_norm, target,
+                           num_actions=num_actions, activation=activation,
+                           clip_eps=clip_eps, value_coef=value_coef,
+                           entropy_coef=entropy_coef, total_rows=total_rows)
     f32 = torch.float32
     t_mb, n = action.shape
     inv_m = 1.0 / (total_rows or t_mb * n)
@@ -317,15 +453,11 @@ def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
                     if l > 0:
                         dh_b = torch.matmul(wf[l], dpre_b.float()).to(BF16)
                 continue
-            dh = torch.matmul(wpv, dheads_b)                         # (H, C)
-            for l in range(L - 1, -1, -1):
-                dpre = dh * _dact(hs[l], activation)
-                dpre_b = dpre.to(BF16).float()
+            for l, dpre, dpre_b in _dpre_chain(torch.matmul(wpv, dheads_b), hs, wf,
+                                               activation):
                 below = hs[l - 1] if l > 0 else x
                 dw[l] += torch.matmul(below, dpre_b.t())
                 db[l] += dpre.sum(dim=1)
-                if l > 0:
-                    dh = torch.matmul(wf[l], dpre_b)
     grads = _merged_grads(names, dw, db, dwpv, dbpv, A)
     return grads, _loss_vector(sums, inv_m, value_coef, entropy_coef)
 
@@ -409,6 +541,21 @@ def _library() -> ctypes.CDLL:
                    + [ctypes.c_int] * 2             # quant, bwd_bf16
                    + [_PTR] * 3                     # int8 weights, scales, cell maxima
                    + [ctypes.c_int])                # cell columns
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library_bf16() -> ctypes.CDLL:
+    lib = _build.load("fused_update_bf16", SOURCES_BF16)
+    fn = lib.k1_bf16_launch
+    fn.argtypes = ([_PTR] * 6                       # obs and the 5 scalars
+                   + [_PTR] * 2 + [_PTR]            # weights, biases, hidden widths
+                   + [ctypes.c_int] * 7             # L, F, Fp, A, relu, T, N
+                   + [ctypes.c_float] * 4           # clip, -inv_m, ent, val scales
+                   + [_PTR, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]  # workspace
+                   + [_PTR, ctypes.c_int, _PTR, ctypes.c_int]  # partials of A and B
+                   + [_PTR, _PTR, ctypes.c_int])    # out, stream, stages
     fn.restype = ctypes.c_int
     return lib
 
@@ -512,6 +659,172 @@ def _ptr_array(tensors):
     return ctypes.cast(arr, _PTR), arr
 
 
+def _pad_net(bf16_w, b, L: int, f: int, A: int):
+    """K1's weights and biases as its kernels take them: the first kernel
+    with zero rows to ``Fp``, the merged (H, A+1) head padded to HEAD_PAD
+    columns, its bias to HEAD_PAD."""
+    device = bf16_w[0].device
+    w0 = torch.zeros((_round16(f), bf16_w[0].shape[1]), dtype=BF16, device=device)
+    w0[:f] = bf16_w[0]
+    wpv = torch.zeros((bf16_w[L].shape[0], HEAD_PAD), dtype=BF16, device=device)
+    wpv[:, :A + 1] = torch.cat([bf16_w[L], bf16_w[L + 1]], dim=1)
+    bpv = torch.zeros(HEAD_PAD, dtype=torch.float32, device=device)
+    bpv[:A + 1] = torch.cat([b[L], b[L + 1]]).float()
+    weights = [w0] + [x.contiguous() for x in bf16_w[1:L]] + [wpv]
+    biases = [x.float().contiguous() for x in b[:L]] + [bpv]
+    return weights, biases
+
+
+STAGE_CHAIN, STAGE_DW = 1, 2  # K1 bf16's kernel A, kernel B (the launch's ``stages`` bits)
+
+
+def _ws_rows(hidden):
+    """Row offsets of K1 bf16's workspace: bf16(h_l), then bf16(dheads)
+    (HEAD_PAD rows), then bf16(dpre_l).  Returns (h rows, dheads row, dpre
+    rows, total rows)."""
+    row_h = [sum(hidden[:l]) for l in range(len(hidden))]
+    row_dh = sum(hidden)
+    row_dp = [row_dh + HEAD_PAD + r for r in row_h]
+    return row_h, row_dh, row_dp, 2 * sum(hidden) + HEAD_PAD
+
+
+def _npad(n: int) -> int:
+    return -(-n // COLS) * COLS
+
+
+def _bf16_call(obs, hidden, num_actions: int, ws, chunk: int, stages: int, net=None):
+    """Launch K1 bf16's kernels over ``obs`` (T, F, N) through the workspace
+    ``ws`` (rows, chunk * Npad) bf16, ``chunk`` frames at a time: kernel A,
+    kernel B or both (``stages``).  ``net``, kernel A's inputs: (weights,
+    biases, int32 action, the 4 per-column scalars, relu, clip, -1/M, entropy
+    and value scales).  Returns ``out``: every dW, then the bias grads and
+    the 4 loss sums, as :func:`_unpack` reads them."""
+    t_mb, f, n = obs.shape
+    device = obs.device
+    widths = [_round16(f), *hidden]
+    shapes = list(zip(widths, [*hidden, HEAD_PAD]))          # each dW
+    n_w = sum(i * o for i, o in shapes)
+    n_b = sum(hidden) + HEAD_PAD
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks_a = min(chunk * _npad(n) // COLS, sms)
+    tiles = sum(-(-i // DW_TILE) * -(-o // DW_TILE) for i, o in shapes)
+    # DW_BLOCKS_PER_SM blocks of kernel B an SM, each over its own column range.
+    ranges = max(1, min(-(-DW_BLOCKS_PER_SM * sms // tiles), chunk * _npad(n) // COLS))
+    partial_a = torch.empty((blocks_a, n_b + 4), dtype=torch.float32, device=device)
+    partial_b = torch.empty((ranges, n_w), dtype=torch.float32, device=device)
+    out = torch.empty(n_w + n_b + 4, dtype=torch.float32, device=device)
+    obs = obs.contiguous()
+    dims = (ctypes.c_int * len(hidden))(*hidden)
+    if net is None:
+        w_ptrs = b_ptrs = None
+        ptrs, relu, scales = [None] * 5, 0, (0.0,) * 4
+    else:
+        weights, biases, action, scalars, relu, *scales = net
+        w_ptrs, _w = _ptr_array(weights)
+        b_ptrs, _b = _ptr_array(biases)
+        ptrs = [action.data_ptr(), *[x.data_ptr() for x in scalars]]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _library_bf16().k1_bf16_launch(
+            obs.data_ptr(), *ptrs, w_ptrs, b_ptrs, ctypes.cast(dims, _PTR), len(hidden), f,
+            widths[0], num_actions, relu, t_mb, n, *scales, ws.data_ptr(), ws.shape[0],
+            ws.shape[1], chunk, partial_a.data_ptr(), blocks_a, partial_b.data_ptr(), ranges,
+            out.data_ptr(), stream, stages)
+    if err != 0:
+        raise RuntimeError(f"K1 bf16 kernel launch failed: CUDA error {err}")
+    return out
+
+
+def _run_bf16(params: Params, obs, action, scalars, *, num_actions: int, activation: str,
+              clip_eps: float, value_coef: float, entropy_coef: float, inv_m: float,
+              chunk: int, stages: int):
+    """Pad the net, allocate a workspace of ``chunk`` frames and launch.
+    Returns (names, hidden widths, out, workspace)."""
+    names, L, w, b = dense_layers(params)
+    hidden = _check_net(w, L, num_actions, HEAD_PAD, activation)
+    t_mb, f, n = obs.shape
+    if t_mb * n == 0:
+        raise ValueError(f"empty minibatch: obs is {tuple(obs.shape)}")
+    weights, biases = _pad_net([x.to(BF16) for x in w], b, L, f, num_actions)
+    ws = torch.empty((_ws_rows(hidden)[-1], chunk * _npad(n)), dtype=BF16, device=obs.device)
+    net = (weights, biases, action.to(torch.int32).contiguous(),
+           [x.contiguous() for x in scalars], int(activation == "relu"), clip_eps, -inv_m,
+           entropy_coef * inv_m, value_coef * inv_m)
+    return names, hidden, _bf16_call(obs, hidden, num_actions, ws, chunk, stages, net), ws
+
+
+def chunk_frames(t_mb: int, n: int) -> int:
+    """Frames of one chunk of K1's bf16 mode: about CHUNK_COLS workspace
+    columns, at least one frame."""
+    return max(1, min(t_mb, CHUNK_COLS // _npad(n)))
+
+
+def _launch_bf16(params: Params, obs, action, logp_old, value_old, adv_norm, target,
+                 num_actions: int, inv_m: float, **kw):
+    """K1's bf16 mode: kernels A and B over chunks of frames, then the grads
+    dict and the loss vector."""
+    t_mb, f, n = obs.shape
+    names, hidden, out, _ = _run_bf16(params, obs, action, (logp_old, value_old, adv_norm, target),
+                                      num_actions=num_actions, inv_m=inv_m,
+                                      chunk=chunk_frames(t_mb, n),
+                                      stages=STAGE_CHAIN | STAGE_DW, **kw)
+    dw, db, dwpv, dbpv, sums = _unpack(out, [_round16(f), *hidden], HEAD_PAD, f)
+    grads = _merged_grads(names, dw, db, dwpv, dbpv, num_actions)
+    return grads, _loss_vector(sums, inv_m, kw["value_coef"], kw["entropy_coef"])
+
+
+def k1_chain(params: Params, obs: torch.Tensor, action: torch.Tensor,
+             logp_old: torch.Tensor, value_old: torch.Tensor, adv_norm: torch.Tensor,
+             target: torch.Tensor, *, num_actions: int, activation: str, clip_eps: float,
+             value_coef: float, entropy_coef: float, total_rows: int = 0) -> K1Chain:
+    """Kernel A of K1's bf16 mode alone, over the whole minibatch (its
+    workspace holds every frame): the :class:`K1Chain` of
+    :func:`k1_chain_plain`, whose operands are views of the workspace.  On
+    CUDA it adds one to ``k1_chain.launches``; on the CPU it runs
+    :func:`k1_chain_plain`."""
+    scalars = (logp_old, value_old, adv_norm, target)
+    kw = dict(num_actions=num_actions, activation=activation, clip_eps=clip_eps,
+              value_coef=value_coef, entropy_coef=entropy_coef)
+    if _check(obs, scalars, action).type == "cpu":
+        return k1_chain_plain(params, obs, action, *scalars, total_rows=total_rows, **kw)
+    t_mb, f, n = obs.shape
+    inv_m = 1.0 / (total_rows or t_mb * n)
+    _, hidden, out, ws = _run_bf16(params, obs, action, scalars, inv_m=inv_m, chunk=t_mb,
+                                   stages=STAGE_CHAIN, **kw)
+    k1_chain.launches += 1
+    _, db, _, dbpv, sums = _unpack(out, [_round16(f), *hidden], HEAD_PAD, f)
+    row_h, row_dh, row_dp, rows = _ws_rows(hidden)
+    view = ws.view(rows, t_mb, _npad(n))
+    op = lambda r, k: view[r:r + k, :, :n]
+    return K1Chain([op(r, h) for r, h in zip(row_h, hidden)], op(row_dh, num_actions + 1),
+                   [op(r, h) for r, h in zip(row_dp, hidden)], db, dbpv[:num_actions + 1], sums)
+
+
+def k1_dw(chain: K1Chain, obs: torch.Tensor):
+    """Kernel B of K1's bf16 mode alone, on ``chain``'s operands (copied into
+    a workspace of the whole minibatch, zero past column N): the dW of
+    :func:`k1_dw_plain`.  On CUDA it adds one to ``k1_dw.launches``; on the
+    CPU it runs :func:`k1_dw_plain`."""
+    if obs.device.type == "cpu":
+        return k1_dw_plain(chain, obs)
+    t_mb, f, n = obs.shape
+    hidden = [h.shape[0] for h in chain.hs]
+    num_actions = chain.dheads.shape[0] - 1
+    row_h, row_dh, row_dp, rows = _ws_rows(hidden)
+    ws = torch.zeros((rows, t_mb * _npad(n)), dtype=BF16, device=obs.device)
+    view = ws.view(rows, t_mb, _npad(n))
+    for r, x in [*zip(row_h, chain.hs), (row_dh, chain.dheads), *zip(row_dp, chain.dpres)]:
+        view[r:r + x.shape[0], :, :n] = x
+    out = _bf16_call(obs, hidden, num_actions, ws, t_mb, STAGE_DW)
+    k1_dw.launches += 1
+    dw, _, dwpv, _, _ = _unpack(out, [_round16(f), *hidden], HEAD_PAD, f)
+    return dw, dwpv[:, :num_actions + 1]
+
+
+k1_chain.launches = 0
+k1_dw.launches = 0
+
+
 def _launch(params: Params, obs, action, logp_old, value_old, adv_norm, target,
             num_actions: int, activation: str, clip_eps: float,
             value_coef: float, entropy_coef: float, inv_m: float,
@@ -539,14 +852,7 @@ def _launch(params: Params, obs, action, logp_old, value_old, adv_norm, target,
             # The int8 backward's head product takes the int8 head as bf16.
             bf16_w[L] = wq[L][:, :A].to(BF16)
             bf16_w[L + 1] = wq[L][:, A:].to(BF16)
-    w0 = torch.zeros((fp, hidden[0]), dtype=BF16, device=device)
-    w0[:f] = bf16_w[0]
-    wpv = torch.zeros((h_top, HEAD_PAD), dtype=BF16, device=device)
-    wpv[:, :A + 1] = torch.cat([bf16_w[L], bf16_w[L + 1]], dim=1)
-    bpv = torch.zeros(HEAD_PAD, dtype=torch.float32, device=device)
-    bpv[:A + 1] = torch.cat([b[L], b[L + 1]]).float()
-    weights = [w0] + [x.contiguous() for x in bf16_w[1:L]] + [wpv]
-    biases = [x.float().contiguous() for x in b[:L]] + [bpv]
+    weights, biases = _pad_net(bf16_w, b, L, f, A)
 
     widths = [fp, *hidden]
     partial, out, blocks, stride = _partials(device, widths, HEAD_PAD,
@@ -599,7 +905,9 @@ def fused_ppo_grads_fm(params: Params, obs: torch.Tensor, action: torch.Tensor,
 
     Returns ``(grads, losses)``: f32 grads keyed like ``params`` and
     ``losses = [total, policy, value, entropy, approx_kl]`` (means).  On
-    CUDA this launches ``csrc/fused_update.cu`` on the current stream
+    CUDA this launches ``csrc/fused_update_bf16.cu`` (the bf16 mode: kernels
+    A and B over chunks of frames) or ``csrc/fused_update.cu`` (the other
+    modes) on the current stream
     without synchronising and adds one to ``fused_ppo_grads_fm.launches``
     and to ``launches_by_mode[mode_name(quant, bwd_bf16)]``; on the CPU it
     runs :func:`fused_ppo_grads_fm_plain`."""
@@ -614,7 +922,12 @@ def fused_ppo_grads_fm(params: Params, obs: torch.Tensor, action: torch.Tensor,
                                         total_rows=total_rows, **kw)
     t_mb, _, n = obs.shape
     inv_m = 1.0 / (total_rows or t_mb * n)
-    result = _launch(params, obs, action, *scalars, inv_m=inv_m, **kw)
+    if quant == "none" and not bwd_bf16:
+        result = _launch_bf16(params, obs, action, *scalars, num_actions=num_actions,
+                              activation=activation, clip_eps=clip_eps, value_coef=value_coef,
+                              entropy_coef=entropy_coef, inv_m=inv_m)
+    else:
+        result = _launch(params, obs, action, *scalars, inv_m=inv_m, **kw)
     fused_ppo_grads_fm.launches += 1
     fused_ppo_grads_fm.launches_by_mode[mode_name(quant, bwd_bf16)] += 1
     return result
