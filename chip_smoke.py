@@ -248,8 +248,8 @@ def build_all(card: str):
         return lib._name, time.perf_counter() - t0
 
     libraries = (predict_cuda._library, fused_step._library, fused_update._library,
-                 fused_update._library_bf16, fused_update._library_rm, compaction_probe._library, fm_roofline._library,
-                 fm_kernel_probe._library)
+                 fused_update._library_bf16, fused_update._library_int8, fused_update._library_rm,
+                 compaction_probe._library, fm_roofline._library, fm_kernel_probe._library)
     with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
         builds = [pool.submit(timed_build, b) for b in libraries]
         for future in builds:
@@ -384,6 +384,13 @@ K1_DW_REL = 1e-5
 # K1 bf16 at full width may sit at most this many times as far from a
 # float64 plain version as the plain version does.
 K1_F64_RATIO = 2.0
+# K1 int8's kernels A and S against their plain version: an integer operand
+# (x_q, h_q, dp_q) may differ by one step only where its f32 value lies on a
+# rounding boundary that the two sides' last bits put on opposite sides (a
+# tanh, an f32 sum's order, a cell maximum that moved with them); at most
+# this share of the entries.
+INT8_STEP_SHARE = 1e-3
+INT8_HOLD_FRAMES = 8  # frames of the full-width minibatch that the stage holds take
 LEARNER = PPOConfig(num_envs=65536, rollout_length=128, num_minibatches=4,
                     update_epochs=4, hidden=HIDDEN)
 LEARNER_UPDATES = 3
@@ -562,6 +569,114 @@ def k1_split_times(args, kw, card: str, k1_ms: float):
           f"bound {b[0]:.3f} ms by {b[1]} [{card}]")
 
 
+def hold_k1_int8_split(label: str, args, kw, card: str) -> float:
+    """K1 int8's kernels, each against its plain version on the card:
+    kernels A and S (``k1_int8_chain``, the whole minibatch) against
+    ``k1_int8_chain_plain``: each integer operand within one step, on at most
+    INT8_STEP_SHARE of its entries; the f32 dpre, the cell maxima, the bf16
+    operands and the bias grads within BF16_TOL's relative L2 and cos, the
+    loss sums (as means) within its rtol; then kernel Q and the head's dW
+    (``k1_int8_dw``) on the kernels' own operands against
+    ``k1_int8_dw_plain`` on the same operands, each dW within K1_DW_REL.
+    Raises on the first miss; returns the largest share of entries a step
+    apart."""
+    loss_rtol, rel_l2, min_cos = BF16_TOL
+    got = fused_update.k1_int8_chain(*args, **kw)
+    want = fused_update.k1_int8_chain_plain(*args, **kw)
+    torch.cuda.synchronize()
+    L = len(got.hs)
+    share, worst_share = {}, 0.0
+    for name, g, w in [("x_q", got.x_q, want.x_q),
+                       *[(f"h_q{l}", got.hs[l], want.hs[l]) for l in range(L)],
+                       *[(f"dp_q{l}", got.dp_q[l], want.dp_q[l]) for l in range(L)]]:
+        apart = steps = 0
+        for t in range(g.shape[1]):
+            d = (g[:, t].int() - w[:, t].int()).abs()
+            steps = max(steps, int(d.max()))
+            apart += int((d != 0).sum())
+        share[name] = apart / g.numel()
+        if steps > 1 or share[name] > INT8_STEP_SHARE:
+            raise AssertionError(f"kernels A+S [{label}]: {name} {steps} steps apart on "
+                                 f"{share[name]:.3e} of its entries")
+        worst_share = max(worst_share, share[name])
+    pairs = [("h_top", got.h_top, want.h_top), ("dheads", got.dheads, want.dheads),
+             *[(f"dpre{l}", got.dpres[l], want.dpres[l]) for l in range(L)],
+             ("cellmax", got.cellmax, want.cellmax),
+             *[(f"db{l}", got.db[l][:, None, None], want.db[l][:, None, None]) for l in range(L)],
+             ("dbpv", got.dbpv[:, None, None], want.dbpv[:, None, None])]
+    worst_rel, worst_cos = 0.0, 1.0
+    for name, g, w in pairs:
+        rel, cos = operand_distance(g, w)
+        if not (rel <= rel_l2 and cos >= min_cos):
+            raise AssertionError(f"kernels A+S [{label}]: {name} relative L2 {rel:.3e}, cos {cos:.8f}")
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+    inv_m = 1.0 / args[2].numel()
+    if not torch.allclose(got.sums * inv_m, want.sums * inv_m, rtol=loss_rtol, atol=LOSS_ATOL):
+        raise AssertionError(f"kernels A+S [{label}]: loss sums {got.sums.tolist()} vs plain "
+                             f"{want.sums.tolist()}")
+    del want
+    dw, dwpv = fused_update.k1_int8_dw(got)
+    dw_p, dwpv_p = fused_update.k1_int8_dw_plain(got)
+    torch.cuda.synchronize()
+    rels = {name: float((g.double() - w.double()).norm() / w.double().norm())
+            for name, g, w in [*[(f"dW{l}", dw[l], dw_p[l]) for l in range(L)],
+                               ("dWpv", dwpv, dwpv_p)]}
+    worst_dw = max(rels, key=rels.get)
+    if rels[worst_dw] > K1_DW_REL:
+        raise AssertionError(f"kernel Q [{label}]: {worst_dw} relative L2 {rels[worst_dw]:.3e} "
+                             f"> {K1_DW_REL}")
+    shape = "x".join(str(d) for d in args[1].shape)
+    print(f"phase 11 K1 int8 kernels A+S vs k1_int8_chain_plain [{label}], obs {shape}: entries "
+          f"one step apart {json.dumps({k: float(f'{v:.3e}') for k, v in share.items()})} (bound "
+          f"{INT8_STEP_SHARE}, none further), worst f32 / bf16 operand, cell maximum or bias grad "
+          f"relative L2 {worst_rel:.3e} cos {worst_cos:.8f}; dW kernels vs k1_int8_dw_plain on the "
+          f"kernels' operands: worst {worst_dw} relative L2 {rels[worst_dw]:.3e} [{card}]")
+    return worst_share
+
+
+def k1_int8_split_floor(rows: int, f: int = 35, num_actions: int = 18):
+    """(ms, bytes) of K1 int8's own floor by bytes at HIDDEN: kernel A reads
+    the observations and the 5 per-column inputs and writes x_q, h_q_l,
+    bf16(h_top), bf16(dheads) and the f32 dpre_{L-1}; kernel S for layer l
+    reads dpre_l and writes dp_q_l, and for l > 0 reads h_q_{l-1} and
+    writes dpre_{l-1}; the dW kernels read x_q, h_q_0..h_q_{L-2}, every dp_q,
+    bf16(h_top) and bf16(dheads)."""
+    hidden, fp = list(HIDDEN), -(-f // 16) * 16
+    head = 2 * fused_update.HEAD_PAD
+    a = f * 2 + 5 * 4 + fp + sum(hidden) + 2 * hidden[-1] + head + 4 * hidden[-1]
+    s = sum(4 * h + h + (5 * hidden[l - 1] if l else 0) for l, h in enumerate(hidden))
+    q = fp + sum(hidden[:-1]) + sum(hidden) + 2 * hidden[-1] + head
+    nbytes = rows * (a + s + q)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def k1_int8_split_times(args, kw, card: str, call_ms: float):
+    """CUDA-event ms of K1 int8's kernel A alone, A with kernel S (so S is
+    their difference) and the dW kernels alone, over the wrapper's own
+    chunks (min of two readings of 5 calls), beside the whole call's and
+    the design's floor by bytes.  Returns (A, S, dW) ms."""
+    params, obs, action, *scalars = args
+    t_mb, _, n = obs.shape
+    chunk = fused_update.chunk_frames(t_mb, n)
+    run = lambda stages: fused_update._run_int8(
+        params, obs, action, scalars, num_actions=kw["num_actions"],
+        activation=kw["activation"], clip_eps=kw["clip_eps"], value_coef=kw["value_coef"],
+        entropy_coef=kw["entropy_coef"], inv_m=1.0 / (t_mb * n), chunk=chunk, stages=stages)
+    timed = lambda stages: min(cuda_ms(lambda: run(stages), 5) for _ in range(2))
+    a_ms = timed(fused_update.STAGE_CHAIN)
+    s_ms = timed(fused_update.STAGE_CHAIN | fused_update.STAGE_REQUANT) - a_ms
+    q_ms = timed(fused_update.STAGE_DW)
+    floor_ms, nbytes = k1_int8_split_floor(t_mb * n)
+    b = grad_bound(t_mb * n, "int8")
+    L = len(HIDDEN)
+    print(f"phase 11 time K1 int8 split T={t_mb} N={n}: call {call_ms:.3f} ms = kernel A "
+          f"{a_ms:.3f} ms + kernel S x {L} {s_ms:.3f} ms (A with S, less A) + dW kernels (Q and "
+          f"the head's B) {q_ms:.3f} ms; chunks of {chunk} frame(s), {-(-t_mb // chunk)} x "
+          f"(A, {L} S, Q, B) launches; the design's floor by bytes {floor_ms:.3f} ms "
+          f"({nbytes / 1e9:.2f} GB), the function's bound {b[0]:.3f} ms by {b[1]} [{card}]")
+    return a_ms, s_ms, q_ms
+
+
 def hold_k1_float64(args, kw, card: str):
     """At full width: the worst grad leaf's distance from a float64 plain
     version, of the kernel and of the plain version; raises unless the
@@ -670,6 +785,7 @@ def train(env_config: EnvConfig, cfg: PPOConfig, updates: int, label: str, card:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {"fused_ppo_grads_fm": dict(fused_ppo_grads_fm.launches_by_mode),
+                "by_kernel": dict(fused_ppo_grads_fm.launches_by_kernel),
                 "fused_ppo_grads": fused_ppo_grads.launches,
                 "landing_sims_batched": predict_cuda.landing_sims_batched.launches,
                 "fused_rollout": fused_rollout.launches}
@@ -1087,6 +1203,13 @@ def main() -> int:
             if fused_update.cell_cols(3000) != 3000:
                 raise AssertionError("N=3000 is not one cell")
             cases.append(("one cell of 3000 columns", k1_inputs(2, 3000, "tanh", 26), kw))
+            # Its kernels stage by stage, on the same three cases (the full
+            # width on its first INT8_HOLD_FRAMES frames).
+            step_share = max(hold_k1_int8_split(
+                case if case != "full width" else f"full width, {INT8_HOLD_FRAMES} frames",
+                args if case != "full width" else
+                (args[0], *[x[:INT8_HOLD_FRAMES] for x in args[1:]]), tanh_kw, card)
+                for case, args, _ in cases)
         if name == "int8fwd":
             # int8fwd runs the stock bf16 backward, so it takes bwd_bf16 too.
             cases.append(("full width, bf16 backward chain", full, dict(kw, bwd_bf16=True)))
@@ -1096,6 +1219,10 @@ def main() -> int:
         m_ms, m_plain_ms = time_grads(f"K1 {name} T=32 N=131072", fused_ppo_grads_fm,
                                       plain_fm, full, kw, card, 11)
         mode_stats[name] = (m_err, m_ms, m_plain_ms)
+        if name == "int8":
+            k1_int8_split_times(full, tanh_kw, card, m_ms)
+            print(f"phase 11 K1 int8: the largest share of operand entries one step apart "
+                  f"{step_share:.3e} (bound {INT8_STEP_SHARE}) [{card}]")
         del cases
     del full, ragged_tanh
 
@@ -1119,9 +1246,23 @@ def main() -> int:
                                              update_bwd_bf16=True))):
         runner, train_step, run, _ = train(EnvConfig(auto_reset=True), cfg, 1,
                                            f"self-play, K1 {name}", card, phase=12)
-        expect_launches(f"self-play, K1 {name}", run, name,
-                        k1=cfg.update_epochs * cfg.num_minibatches)
+        calls = cfg.update_epochs * cfg.num_minibatches
+        expect_launches(f"self-play, K1 {name}", run, name, k1=calls)
         mode_launches[name] = run["fused_ppo_grads_fm"][name]
+        # Which kernels served: the int8 mode's split kernels (A, S a layer,
+        # Q and the head's B, each chunk of frames) and no fused_update.cu
+        # launch; the other modes fused_update.cu once a call.
+        frames, cols = cfg.rollout_length // cfg.num_minibatches, 2 * cfg.num_envs
+        chunks = calls * -(-frames // fused_update.chunk_frames(frames, cols))
+        per_chunk = {"int8_chain": 1, "int8_requant": len(cfg.hidden), "int8_dw": 1,
+                     "int8_head_dw": 1}
+        want = (dict({"fused_update.cu": 0}, **{k: chunks * v for k, v in per_chunk.items()})
+                if name == "int8" else dict({"fused_update.cu": calls},
+                                            **dict.fromkeys(per_chunk, 0)))
+        if run["by_kernel"] != want:
+            raise AssertionError(f"self-play, K1 {name}: kernel launches {run['by_kernel']}, "
+                                 f"want {want}")
+        print(f"phase 12 K1 {name} kernel launches {run['by_kernel']} [{card}]")
         if name == "int8":
             time_learner_phases(runner, train_step, cfg, card, phase=12)
         del runner, train_step
@@ -1144,7 +1285,8 @@ def main() -> int:
     ]
     for name in K1_MODES:
         m_err, m_ms, m_plain = mode_stats[name]
-        entries.append((f"fused_ppo_grads_fm[{name}]", "fused_update.cu",
+        entries.append((f"fused_ppo_grads_fm[{name}]",
+                        "fused_update_int8.cu" if name == "int8" else "fused_update.cu",
                         "pikazoo_tpu/train/fused_update.py:504", mode_launches[name],
                         m_err, m_ms, m_plain,
                         grad_bound(rows, name if name != "bwd_bf16" else "none")))

@@ -5,7 +5,9 @@
 // in its modes the bf16 backward chain (`bwd_bf16`), and the int8 modes
 // `int8fwd` and `int8`.  The default bf16 mode runs fused_update_bf16.cu
 // (two kernels: the per-tile chain and the long-K dW products); its
-// template instance here (Q_NONE, no bwd_bf16) is no longer launched.
+// template instance here (Q_NONE, no bwd_bf16) is no longer launched.  The
+// int8 mode runs fused_update_int8.cu (the same split, with a requantise
+// kernel a layer); its instance here (Q_FULL) is no longer launched either.
 // Python side:
 // pikazoo_tpu_torch/train/fused_update.py, which also holds the plain PyTorch
 // version this kernel is held against.  Device code shared with K4 (the

@@ -3,9 +3,10 @@ products puts it there.  Needs a card and nvcc:
 
     python3 -m pikazoo_tpu_torch.tools.k1_precision_probe [--time]
 
-The bf16 mode runs ``csrc/fused_update_bf16.cu`` (its two kernels), which
-the variants do not touch: its row names that source and shows it beside the
-plain version once.  The other modes run ``csrc/fused_update.cu``, and the
+The bf16 mode runs ``csrc/fused_update_bf16.cu`` (its two kernels) and the
+int8 mode ``csrc/fused_update_int8.cu`` (its split kernels), which the
+variants do not touch: each one's row names its source and shows it beside
+the plain version once.  The other modes run ``csrc/fused_update.cu``, and the
 probe builds variants of it into ``build/probe/`` by
 substituting the product calls, each with hooks that copy one tile per block
 of the kernel's intermediates to device memory:
@@ -24,8 +25,8 @@ float64 dots (K-D) and plain vs that (P-D); the bf16 chain at T = 1, 4, 32;
 for the first tile of each block, each dot's error against a float64 dot of
 the kernel's own inputs, with the share of errors that point toward zero,
 and how often the chain's bf16 roundings flip; and, with ``--time``,
-CUDA-event ms of ``kernel`` and ``tensor_head`` per mode but bf16,
-interleaved.
+CUDA-event ms of ``kernel`` and ``tensor_head`` per mode of
+``fused_update.cu``, interleaved.
 """
 
 from __future__ import annotations
@@ -84,7 +85,8 @@ VARIANTS = {  # name: (forward, hidden dh, the bf16 chain's head dh)
     "tensor_head+cuda_hidden": (TENSOR_FWD, CUDA_DH, HEAD_TENSOR),
     "tensor_head+cuda_forward": (CUDA_FWD, TENSOR_DH, HEAD_TENSOR),
 }
-SPLIT = "fused_update_bf16.cu"  # the bf16 mode's source, not a variant
+# The modes with sources of their own, which the variants do not touch.
+SPLIT = {"none": "fused_update_bf16.cu", "int8": "fused_update_int8.cu"}
 MODES = {"none": {}, "bwd_bf16": dict(bwd_bf16=True), "int8fwd": dict(quant="int8fwd"),
          "int8fwd+bwd_bf16": dict(quant="int8fwd", bwd_bf16=True),
          "int8": dict(quant="int8")}
@@ -268,8 +270,8 @@ def run(opts) -> int:
         plain = fu.fused_ppo_grads_fm_plain(*args, **kw)[0]
         exact = float64_plain(args, kw)
         line = [f"P-D {worst(plain, exact)}"]
-        for name in (SPLIT,) if mode == "none" else ("kernel", "tensor_head"):
-            if name != SPLIT:
+        for name in (SPLIT[mode],) if mode in SPLIT else ("kernel", "tensor_head"):
+            if mode not in SPLIT:
                 use(libs[name])
             got = fu.fused_ppo_grads_fm(*args, **kw)[0]
             line.append(f"{name} K-P {worst(got, plain)} K-D {worst(got, exact)}")
@@ -298,8 +300,8 @@ def run(opts) -> int:
         print(f"CUDA-event ms a call, interleaved tensor_head, kernel, kernel, "
               f"tensor_head [{card}]")
         for mode, mkw in MODES.items():
-            if mode == "none":
-                continue   # the variants are of fused_update.cu, which bf16 does not run
+            if mode in SPLIT:
+                continue   # the variants are of fused_update.cu, which this mode does not run
             kw = dict(tanh, **mkw)
 
             def call(lib):

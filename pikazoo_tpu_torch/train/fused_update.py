@@ -9,7 +9,8 @@ observations feature-major ``(T, F, 2B)`` bf16, as the rollout stores them;
 K4 takes it flattened to rows, observations ``(M, F)`` bf16.
 
 A CUDA minibatch runs hand-written Hopper kernels (for K1 ``csrc/fused_update_bf16.cu``
-in the bf16 mode and ``csrc/fused_update.cu`` in the others,
+in the bf16 mode, ``csrc/fused_update_int8.cu`` in the int8 mode and
+``csrc/fused_update.cu`` in the others,
 ``csrc/fused_update_rm.cu`` for K4, built by
 ``pikazoo_tpu_torch._build`` at first use); a CPU one runs the plain PyTorch
 version (:func:`fused_ppo_grads_fm_plain`, :func:`fused_ppo_grads_rm_plain`).
@@ -38,7 +39,14 @@ modes, as the JAX kernel's branches:
 - ``quant="int8"``: the forward as ``int8fwd`` but the int8 activations are
   kept; the two head products of the backward stay bf16, the hidden chain
   quantises ``dpre`` with a dynamic max-abs scale per frame and column cell
-  (``cell_cols``), and the bias grads sum the un-quantised ``dpre``.
+  (``cell_cols``), and the bias grads sum the un-quantised ``dpre``.  On the
+  card it runs on the split design too: kernel A (the int8 forward, the loss,
+  the head's backward) and kernel S once a hidden layer (the requantise step:
+  a launch boundary is the grid-wide barrier the per-cell scale needs) write
+  a workspace (:func:`k1_int8_chain`, plain version
+  :func:`k1_int8_chain_plain`); kernel Q computes each hidden dW from it on
+  int8 tensor cores, exact per cell, and the head's dW is kernel B of the
+  bf16 mode (:func:`k1_int8_dw`, plain version :func:`k1_int8_dw_plain`).
 
 K4 differs from K1's bf16 mode in three places: the activation derivative is
 taken from the f32 activation, the policy and value heads are two products
@@ -59,12 +67,14 @@ from pikazoo_tpu_torch.train.networks import BF16, Params, dense_layers
 SOURCES = ("fused_update.cu",)
 SOURCES_BF16 = ("fused_update_bf16.cu",)
 SOURCES_RM = ("fused_update_rm.cu",)
+SOURCES_INT8 = ("fused_update_int8.cu",)
 COLS = 64        # env columns per tile of K1 (both sources)
 DW_TILE = 128    # output rows and columns of a tile of K1 bf16's dW kernel
 # Workspace columns of one chunk of K1's bf16 mode (whole frames, at least
 # one): ~277 MB at hidden (256, 256).
 CHUNK_COLS = 131072
 DW_BLOCKS_PER_SM = 2  # resident blocks of K1 bf16's dW kernel (110 KB of shared memory each)
+Q_TILE_COLS = 64  # output columns of a tile of K1 int8's dW kernel (DW_TILE rows)
 ROWS_RM = 32     # rows per tile of K4 (csrc/fused_update_rm.cu)
 HEAD_PAD = 32    # K1's merged head: A+1 rows, padded
 HEAD_PAD_RM = 48  # K4's head: the policy rows padded to 32, then the value row
@@ -79,6 +89,9 @@ S_IN = 1.0 / 127.0  # the static dequant scale of int8 activations
 # The widest int8 cell whose integer-valued f32 products are exact:
 # 1024 * 127**2 < 2**24.  Wider cells take their dW products in float64.
 EXACT_F32_CELL = 1024
+# The widest int8 cell whose dW products the kernel sums exactly in int32:
+# 133144 * 127**2 < 2**31.
+INT8_MAX_CELL = 133144
 
 
 def _loss_vector(sums: torch.Tensor, inv_m: float, value_coef: float,
@@ -345,6 +358,158 @@ def _plain_bf16(params: Params, obs, action, logp_old, value_old, adv_norm, targ
     return grads, _loss_vector(sums, 1.0 / total_rows, kw["value_coef"], kw["entropy_coef"])
 
 
+class K1Int8Chain(NamedTuple):
+    """What K1's int8 mode computes before its dW products (kernels A and S
+    of ``csrc/fused_update_int8.cu``), each operand (rows, T, N) at the
+    function's rounding points: ``x_q`` and ``hs[l]`` (h_q_l) the int8
+    activations, ``h_top`` bf16(h_q_top * bf16(1/127)) and ``dheads``
+    bf16(dheads) the head dW's bf16 operands, ``dpres[l]`` the f32 dpre_l
+    that the dynamic scale quantises, ``dp_q[l]`` its int8; ``cellmax`` (L, T,
+    cells) the max |dpre_l| of each frame and column cell; ``db[l]`` and
+    ``dbpv`` the f32 row sums of dpre_l and of the f32 dheads; ``sums`` the 4
+    loss sums."""
+    x_q: torch.Tensor
+    hs: List[torch.Tensor]
+    h_top: torch.Tensor
+    dheads: torch.Tensor
+    dpres: List[torch.Tensor]
+    dp_q: List[torch.Tensor]
+    cellmax: torch.Tensor
+    db: List[torch.Tensor]
+    dbpv: torch.Tensor
+    sums: torch.Tensor
+
+
+def _cell_chunk(n: int) -> int:
+    """Columns a chunk of the int8 plain versions: whole cells, about
+    PLAIN_COLS."""
+    cell = cell_cols(n)
+    return cell * max(1, PLAIN_COLS // cell)
+
+
+def k1_int8_chain_plain(params: Params, obs: torch.Tensor, action: torch.Tensor,
+                        logp_old: torch.Tensor, value_old: torch.Tensor,
+                        adv_norm: torch.Tensor, target: torch.Tensor, *,
+                        num_actions: int, activation: str, clip_eps: float,
+                        value_coef: float, entropy_coef: float,
+                        total_rows: int = 0) -> K1Int8Chain:
+    """The plain version of kernels A and S of K1's int8 mode, on any device:
+    the int8 forward, the loss and ``dheads``, the head's bf16 backward and
+    the int8 hidden chain down to ``dp_q_0``, a frame and whole cells at a
+    time (the JAX kernel's ``quant == "full"`` branch)."""
+    _, L, w, b = dense_layers(params)
+    check_mode("int8", activation, L)
+    t_mb, f, n = obs.shape
+    device = obs.device
+    inv_m = 1.0 / (total_rows or t_mb * n)
+    A = num_actions
+    bf = [x.float() for x in b[:L]]
+    bpv = torch.cat([b[L], b[L + 1]]).float()                   # (A+1,)
+    wq, sw = quantize_weights(w, L)
+    wq = [q.float() for q in wq]                                # integer-valued
+    hidden = [x.shape[1] for x in w[:L]]
+    cell, chunk = cell_cols(n), _cell_chunk(n)
+    loss_kw = dict(inv_m=inv_m, clip_eps=clip_eps, value_coef=value_coef,
+                   entropy_coef=entropy_coef)
+    s_in_b = torch.tensor(S_IN, dtype=BF16, device=device)
+    new = lambda rows, dt: torch.empty((rows, t_mb, n), dtype=dt, device=device)
+    i8 = torch.int8
+    x_q_out = new(f, i8)
+    hs_out, dpq_out = [new(h, i8) for h in hidden], [new(h, i8) for h in hidden]
+    dpres_out = [new(h, torch.float32) for h in hidden]
+    h_top_out, dheads_out = new(hidden[-1], BF16), new(A + 1, BF16)
+    cellmax = torch.zeros((L, t_mb, n // cell), dtype=torch.float32, device=device)
+    db = [torch.zeros_like(x) for x in bf]
+    dbpv = torch.zeros_like(bpv)
+    sums = torch.zeros(4, dtype=torch.float32, device=device)
+    for t in range(t_mb):
+        for c0 in range(0, n, chunk):
+            cols = slice(c0, min(n, c0 + chunk))
+            cells = slice(c0 // cell, cols.stop // cell)
+            # The forward: the weight scale rides the bias add.
+            x_q = h_q = _q127(obs[t, :, cols].float())
+            x_q_out[:, t, cols] = x_q.to(i8)
+            hs = []
+            for l in range(L):
+                pre = torch.matmul(wq[l].t(), h_q) * (sw[l] * S_IN) + bf[l][:, None]
+                h_q = _q127(_act(pre, activation))
+                hs.append(h_q)
+                hs_out[l][:, t, cols] = h_q.to(i8)
+            heads = torch.matmul(wq[L].t(), h_q) * (sw[L] * S_IN) + bpv[:, None]
+            chunk_sums, dlogits, dvalue = _loss_and_dheads(
+                heads[:A], heads[A], action[t, cols], logp_old[t, cols],
+                adv_norm[t, cols], value_old[t, cols], target[t, cols], **loss_kw)
+            sums += chunk_sums
+            dheads = torch.cat([dlogits, dvalue[None]])          # (A+1, C)
+            dheads_b = dheads.to(BF16).float()
+            dheads_out[:, t, cols] = dheads_b
+            dbpv += dheads.sum(dim=1)
+            # The head products stay bf16; the hidden chain quantises dpre
+            # per (frame, cell) with a dynamic max-abs scale.
+            h_top_out[:, t, cols] = hs[-1].to(BF16) * s_in_b
+            dh = torch.matmul(wq[L], dheads_b) * sw[L]           # (H, C)
+            ncell = dh.shape[1] // cell
+            for l in range(L - 1, -1, -1):
+                dpre = dh * _dact(hs[l] * S_IN, activation)
+                amax = dpre.abs().reshape(-1, ncell, cell).amax(dim=(0, 2))
+                sa = torch.clamp(amax, min=1e-30)                # (cells,)
+                dp_q = torch.round(dpre * (127.0 / sa).repeat_interleave(cell))
+                cellmax[l, t, cells] = amax
+                dpres_out[l][:, t, cols] = dpre
+                dpq_out[l][:, t, cols] = dp_q.to(i8)
+                db[l] += dpre.sum(dim=1)
+                if l > 0:
+                    k_dp = sa * S_IN
+                    dh = torch.matmul(wq[l], dp_q) * (sw[l] * k_dp).repeat_interleave(cell)
+    return K1Int8Chain(x_q_out, hs_out, h_top_out, dheads_out, dpres_out, dpq_out, cellmax,
+                       db, dbpv, sums)
+
+
+def k1_int8_dw_plain(chain: K1Int8Chain):
+    """The plain version of K1 int8's dW products (kernel Q and the head's
+    bf16 product): ``dW_l = sum over cells of float(below_q . dp_q_l^T) *
+    (sa/127 * 1/127)`` (``below_0`` = x_q), each cell's sum exact
+    (``_cell_dot``), and ``dWpv = bf16(h_top) . bf16(dheads)^T``, a frame and
+    whole cells at a time.  Returns (dW list, dWpv (H, A+1))."""
+    f, t_mb, n = chain.x_q.shape
+    device = chain.x_q.device
+    hidden = [h.shape[0] for h in chain.hs]
+    cell, chunk = cell_cols(n), _cell_chunk(n)
+    dw = [torch.zeros((k, h), device=device) for k, h in zip([f, *hidden[:-1]], hidden)]
+    dwpv = torch.zeros((hidden[-1], chain.dheads.shape[0]), device=device)
+    for t in range(t_mb):
+        for c0 in range(0, n, chunk):
+            cols = slice(c0, min(n, c0 + chunk))
+            cells = slice(c0 // cell, cols.stop // cell)
+            dwpv += torch.matmul(chain.h_top[:, t, cols].float(),
+                                 chain.dheads[:, t, cols].float().t())
+            scale = torch.clamp(chain.cellmax[:, t, cells], min=1e-30) * S_IN * S_IN
+            for l in range(len(hidden) - 1, -1, -1):
+                below = chain.hs[l - 1] if l > 0 else chain.x_q
+                dw[l] += _cell_dot(below[:, t, cols].float(), chain.dp_q[l][:, t, cols].float(),
+                                   scale[l], cell)
+    return dw, dwpv
+
+
+def _plain_int8(params: Params, obs, action, logp_old, value_old, adv_norm, target, *,
+                num_actions: int, total_rows: int, **kw):
+    """K1's int8 mode as its kernels compute it: the chain (A and S), then
+    the dW products, a frame at a time."""
+    names, L, _, _ = dense_layers(params)
+    total_rows = total_rows or obs.shape[0] * obs.shape[2]
+    total = None   # every dW, every bias grad, dWpv, dbpv, the loss sums
+    for t in range(obs.shape[0]):
+        frame = [x[t:t + 1] for x in (obs, action, logp_old, value_old, adv_norm, target)]
+        chain = k1_int8_chain_plain(params, *frame, num_actions=num_actions,
+                                    total_rows=total_rows, **kw)
+        dw, dwpv = k1_int8_dw_plain(chain)
+        parts = [*dw, *chain.db, dwpv, chain.dbpv, chain.sums]
+        total = parts if total is None else [a + b for a, b in zip(total, parts)]
+    dw, db, (dwpv, dbpv, sums) = total[:L], total[L:2 * L], total[2 * L:]
+    grads = _merged_grads(names, dw, db, dwpv, dbpv, num_actions)
+    return grads, _loss_vector(sums, 1.0 / total_rows, kw["value_coef"], kw["entropy_coef"])
+
+
 def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
                              action: torch.Tensor, logp_old: torch.Tensor,
                              value_old: torch.Tensor, adv_norm: torch.Tensor,
@@ -363,11 +528,13 @@ def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
     fits on the card at full width."""
     names, L, w, b = dense_layers(params)
     check_mode(quant, activation, L)
-    if quant == "none" and not bwd_bf16:
-        return _plain_bf16(params, obs, action, logp_old, value_old, adv_norm, target,
-                           num_actions=num_actions, activation=activation,
-                           clip_eps=clip_eps, value_coef=value_coef,
-                           entropy_coef=entropy_coef, total_rows=total_rows)
+    if quant == "int8" or (quant == "none" and not bwd_bf16):
+        # The modes that run as split kernels: their stages composed.
+        composed = _plain_int8 if quant == "int8" else _plain_bf16
+        return composed(params, obs, action, logp_old, value_old, adv_norm, target,
+                        num_actions=num_actions, activation=activation,
+                        clip_eps=clip_eps, value_coef=value_coef,
+                        entropy_coef=entropy_coef, total_rows=total_rows)
     f32 = torch.float32
     t_mb, n = action.shape
     inv_m = 1.0 / (total_rows or t_mb * n)
@@ -379,8 +546,6 @@ def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
     if quant != "none":
         wq, sw = quantize_weights(w, L)
         wq = [q.float() for q in wq]                            # integer-valued
-    cell = cell_cols(n)
-    chunk = cell * max(1, PLAIN_COLS // cell) if quant == "int8" else PLAIN_COLS
     loss_kw = dict(inv_m=inv_m, clip_eps=clip_eps, value_coef=value_coef,
                    entropy_coef=entropy_coef)
 
@@ -390,19 +555,19 @@ def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
     dbpv = torch.zeros_like(bpv)
     sums = torch.zeros(4, dtype=f32, device=obs.device)
     for t in range(t_mb):
-        for c0 in range(0, n, chunk):
-            cols = slice(c0, min(n, c0 + chunk))
+        for c0 in range(0, n, PLAIN_COLS):
+            cols = slice(c0, min(n, c0 + PLAIN_COLS))
             x = obs[t, :, cols].float()
             hs = []
             if quant != "none":
                 # int8 forward: the weight scale rides the bias add; hs holds
-                # the int8 activations ("int8") or bf16(h_f) ("int8fwd").
-                x_q = h_q = _q127(x)
+                # bf16(h_f) for the stock bf16 backward.
+                h_q = _q127(x)
                 for l in range(L):
                     pre = torch.matmul(wq[l].t(), h_q) * (sw[l] * S_IN) + bf[l][:, None]
                     h_f = _act(pre, activation)
                     h_q = _q127(h_f)
-                    hs.append(h_q if quant == "int8" else h_f.to(BF16).float())
+                    hs.append(h_f.to(BF16).float())
                 heads = torch.matmul(wq[L].t(), h_q) * (sw[L] * S_IN) + bpv[:, None]
             else:
                 h = x
@@ -418,28 +583,6 @@ def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
             dheads = torch.cat([dlogits, dvalue[None]])              # (A+1, C)
             dheads_b = dheads.to(BF16).float()
             dbpv += dheads.sum(dim=1)
-
-            if quant == "int8":
-                # The head products stay bf16; the hidden chain quantises
-                # dpre per (frame, cell) with a dynamic max-abs scale.
-                s_in_b = torch.tensor(S_IN, dtype=BF16, device=obs.device)
-                h_top = (hs[-1].to(BF16) * s_in_b).float()
-                dwpv += torch.matmul(h_top, dheads_b.t())
-                dh = torch.matmul(wq[L], dheads_b) * sw[L]          # (H, C)
-                ncell = dh.shape[1] // cell
-                for l in range(L - 1, -1, -1):
-                    h_f = hs[l] * S_IN
-                    dpre = dh * _dact(h_f, activation)
-                    sa = torch.clamp(dpre.abs().reshape(-1, ncell, cell).amax(dim=(0, 2)),
-                                     min=1e-30)                     # (cells,)
-                    dp_q = torch.round(dpre * (127.0 / sa).repeat_interleave(cell))
-                    k_dp = sa * S_IN
-                    below = hs[l - 1] if l > 0 else x_q
-                    dw[l] += _cell_dot(below, dp_q, k_dp * S_IN, cell)
-                    db[l] += dpre.sum(dim=1)
-                    if l > 0:
-                        dh = torch.matmul(wq[l], dp_q) * (sw[l] * k_dp).repeat_interleave(cell)
-                continue
 
             dwpv += torch.matmul(hs[-1], dheads_b.t())
             if bwd_bf16:
@@ -675,7 +818,9 @@ def _pad_net(bf16_w, b, L: int, f: int, A: int):
     return weights, biases
 
 
-STAGE_CHAIN, STAGE_DW = 1, 2  # K1 bf16's kernel A, kernel B (the launch's ``stages`` bits)
+STAGE_CHAIN, STAGE_DW = 1, 2  # kernel A, the dW kernels (the launch's ``stages`` bits)
+STAGE_REQUANT = 4  # K1 int8's kernel S, once a hidden layer
+INT8_KERNELS = ("int8_chain", "int8_requant", "int8_dw", "int8_head_dw")
 
 
 def _ws_rows(hidden):
@@ -825,12 +970,272 @@ k1_chain.launches = 0
 k1_dw.launches = 0
 
 
+def _round32(x: int) -> int:
+    return -(-x // 32) * 32
+
+
+def check_int8_cells(n: int) -> None:
+    """The int8 mode sums each cell's dW products in int32: a whole-frame
+    cell (N no multiple of 128) wider than INT8_MAX_CELL columns could
+    overflow it (the JAX kernel's i32 sum wraps there)."""
+    if cell_cols(n) > INT8_MAX_CELL:
+        raise ValueError(
+            f"the int8 mode's dynamic-scale cell is the whole frame of {n} columns (N is no "
+            f"multiple of 128), wider than {INT8_MAX_CELL}: its int32 dW sums could overflow "
+            f"({INT8_MAX_CELL} x 127^2 < 2^31); use N a multiple of 128 or at most "
+            f"{INT8_MAX_CELL}")
+
+
+def _int8_rows(f: int, hidden):
+    """Row offsets of K1 int8's int8 workspace: x_q (Fp rows), h_q_l, then
+    dp_q_l.  Returns (h rows, dp_q rows, total rows)."""
+    fp, total = _round16(f), sum(hidden)
+    row_h = [fp + sum(hidden[:l]) for l in range(len(hidden))]
+    return row_h, [r + total for r in row_h], fp + 2 * total
+
+
+def _int8_cells(n: int):
+    """(columns of a cell in the workspace, cells a frame): a cell of
+    ``cell_cols(n)`` columns, or the padded frame."""
+    cell = cell_cols(n)
+    cw = _npad(n) if cell >= n else cell
+    return cw, _npad(n) // cw
+
+
+def _int8_net(w, b, L: int, f: int, A: int, hidden):
+    """K1 int8's weights as its kernels take them: the forward kernels
+    transposed (out, in) with the contraction zero-padded to 32 (the first
+    from Fp), the merged head (HEAD_PAD, H) likewise; the hidden kernels
+    (in, out) for the dh products, out padded to 32; the int8 head as bf16
+    (H, HEAD_PAD); the biases, the head's padded; the L+1 scales."""
+    wq, sw = quantize_weights(w, L)
+    device = wq[0].device
+
+    def padded(src, rows, k):
+        out = torch.zeros((rows, k), dtype=torch.int8, device=device)
+        out[:src.shape[0], :src.shape[1]] = src
+        return out
+
+    fwd = [padded(wq[0].t(), hidden[0], _round32(_round16(f)))]
+    fwd += [padded(wq[l].t(), hidden[l], _round32(hidden[l - 1])) for l in range(1, L)]
+    fwd.append(padded(wq[L].t(), HEAD_PAD, _round32(hidden[-1])))
+    bwd = [fwd[0]] + [padded(wq[l], hidden[l - 1], _round32(hidden[l])) for l in range(1, L)]
+    whb = torch.zeros((hidden[-1], HEAD_PAD), dtype=BF16, device=device)
+    whb[:, :A + 1] = wq[L].to(BF16)
+    bpv = torch.zeros(HEAD_PAD, dtype=torch.float32, device=device)
+    bpv[:A + 1] = torch.cat([b[L], b[L + 1]]).float()
+    biases = [x.float().contiguous() for x in b[:L]] + [bpv]
+    return fwd, bwd, whb, biases, sw.contiguous()
+
+
+class _Int8Workspace(NamedTuple):
+    """K1 int8's workspace for ``chunk`` frames: int8 rows (``_int8_rows``),
+    bf16 rows (bf16(h_top), then dheads), f32 rows (dpre_l from
+    ``f_rows[l]``), and the cell maxima (L, T, cells) of the whole
+    minibatch."""
+    q: torch.Tensor
+    b: torch.Tensor
+    f: torch.Tensor
+    f_rows: List[int]
+    cellmax: torch.Tensor
+    chunk: int
+
+
+def _int8_workspace(obs, hidden, chunk: int, dpre_per_layer: bool) -> _Int8Workspace:
+    """Allocate K1 int8's workspace; dpre takes one buffer for every layer
+    (each S launch writes dpre_{l-1} over dpre_l) unless ``dpre_per_layer``."""
+    t_mb, f, n = obs.shape
+    device = obs.device
+    cols = chunk * _npad(n)
+    f_rows = ([sum(hidden[:l]) for l in range(len(hidden))] if dpre_per_layer
+              else [0] * len(hidden))
+    rows_f = sum(hidden) if dpre_per_layer else max(hidden)
+    return _Int8Workspace(
+        torch.empty((_int8_rows(f, hidden)[-1], cols), dtype=torch.int8, device=device),
+        torch.empty((hidden[-1] + HEAD_PAD, cols), dtype=BF16, device=device),
+        torch.empty((rows_f, cols), dtype=torch.float32, device=device), f_rows,
+        torch.zeros((len(hidden), t_mb, _int8_cells(n)[1]), dtype=torch.float32, device=device),
+        chunk)
+
+
+@functools.lru_cache(maxsize=1)
+def _library_int8() -> ctypes.CDLL:
+    lib = _build.load("fused_update_int8", SOURCES_INT8)
+    fn = lib.k1_int8_launch
+    fn.argtypes = ([_PTR] * 6                       # obs and the 5 scalars
+                   + [_PTR] * 5                     # fwd, bwd, bf16 head, biases, scales
+                   + [_PTR] + [ctypes.c_int] * 6    # hidden widths; L, F, Fp, A, T, N
+                   + [ctypes.c_float] * 4           # clip, -inv_m, ent, val scales
+                   + [_PTR] * 3 + [ctypes.c_longlong, _PTR, ctypes.c_int]  # workspace
+                   + [_PTR, ctypes.c_int]           # cell maxima, cell columns
+                   + [_PTR, ctypes.c_int] * 4       # partials of A, S, Q, the head's dW
+                   + [_PTR, _PTR, ctypes.c_int])    # out, stream, stages
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _int8_call(obs, hidden, num_actions: int, ws: _Int8Workspace, stages: int, net=None):
+    """Launch K1 int8's kernels over ``obs`` (T, F, N) through ``ws``,
+    ``ws.chunk`` frames at a time: A and S, the dW kernels or all
+    (``stages``).  ``net``: (the ``_int8_net`` tuple, int32 action, the 4
+    per-column scalars, clip, -1/M, entropy and value scales), for A and S.
+    Returns ``out``: every dW, then the bias grads and the 4 loss sums, as
+    :func:`_unpack` reads them."""
+    t_mb, f, n = obs.shape
+    device = obs.device
+    L = len(hidden)
+    fp = _round16(f)
+    widths = [fp, *hidden]
+    n_w = sum(i * o for i, o in zip(widths, [*hidden, HEAD_PAD]))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = ws.chunk * _npad(n) // COLS
+    blocks = min(tiles, sms)
+    q_tiles = sum(-(-i // DW_TILE) * -(-o // Q_TILE_COLS) for i, o in zip(widths, hidden))
+    cells = ws.chunk * _int8_cells(n)[1]
+    ranges_q = max(1, min(-(-DW_BLOCKS_PER_SM * sms // q_tiles), cells))
+    h_tiles = -(-hidden[-1] // DW_TILE)
+    ranges_h = max(1, min(-(-DW_BLOCKS_PER_SM * sms // h_tiles), tiles))
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)
+    partial_a, partial_s = new(blocks, HEAD_PAD + 4), new(blocks, sum(hidden))
+    partial_q = new(ranges_q, n_w - hidden[-1] * HEAD_PAD)
+    partial_h = new(ranges_h, hidden[-1] * HEAD_PAD)
+    out = new(n_w + sum(hidden) + HEAD_PAD + 4)
+    obs = obs.contiguous()
+    dims = (ctypes.c_int * L)(*hidden)
+    f_rows = (ctypes.c_int * L)(*ws.f_rows)
+    keep = []   # the pointer arrays, alive through the launch
+    if net is None:
+        ptrs, weights, scales = [None] * 5, [None] * 5, (0.0,) * 4
+    else:
+        (fwd, bwd, whb, biases, sw), action, scalars, *scales = net
+        arrays = [_ptr_array(x) for x in (fwd, bwd, biases)]
+        keep = [a for _, a in arrays]
+        weights = [arrays[0][0], arrays[1][0], whb.data_ptr(), arrays[2][0], sw.data_ptr()]
+        ptrs = [action.data_ptr(), *[x.data_ptr() for x in scalars]]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _library_int8().k1_int8_launch(
+            obs.data_ptr(), *ptrs, *weights, ctypes.cast(dims, _PTR), L, f, fp, num_actions,
+            t_mb, n, *scales, ws.q.data_ptr(), ws.b.data_ptr(), ws.f.data_ptr(), ws.q.shape[1],
+            ctypes.cast(f_rows, _PTR), ws.chunk, ws.cellmax.data_ptr(), cell_cols(n),
+            partial_a.data_ptr(), blocks, partial_s.data_ptr(), blocks, partial_q.data_ptr(),
+            ranges_q, partial_h.data_ptr(), ranges_h, out.data_ptr(), stream, stages)
+    if err != 0:
+        raise RuntimeError(f"K1 int8 kernel launch failed: CUDA error {err}")
+    chunks = -(-t_mb // ws.chunk)
+    counts = fused_ppo_grads_fm.launches_by_kernel
+    for bit, names, n_each in ((STAGE_CHAIN, ["int8_chain"], 1), (STAGE_REQUANT, ["int8_requant"], L),
+                               (STAGE_DW, ["int8_dw", "int8_head_dw"], 1)):
+        if stages & bit:
+            for name in names:
+                counts[name] += chunks * n_each
+    return out
+
+
+def _run_int8(params: Params, obs, action, scalars, *, num_actions: int, activation: str,
+              clip_eps: float, value_coef: float, entropy_coef: float, inv_m: float,
+              chunk: int, stages: int, dpre_per_layer: bool = False):
+    """Quantise and pad the net, allocate a workspace of ``chunk`` frames
+    and launch.  Returns (names, hidden widths, out, workspace)."""
+    names, L, w, b = dense_layers(params)
+    hidden = _check_net(w, L, num_actions, HEAD_PAD, activation)
+    t_mb, f, n = obs.shape
+    if t_mb * n == 0:
+        raise ValueError(f"empty minibatch: obs is {tuple(obs.shape)}")
+    check_int8_cells(n)
+    ws = _int8_workspace(obs, hidden, chunk, dpre_per_layer)
+    net = (_int8_net(w, b, L, f, num_actions, hidden), action.to(torch.int32).contiguous(),
+           [x.contiguous() for x in scalars], clip_eps, -inv_m, entropy_coef * inv_m,
+           value_coef * inv_m)
+    return names, hidden, _int8_call(obs, hidden, num_actions, ws, stages, net), ws
+
+
+def _launch_int8(params: Params, obs, action, logp_old, value_old, adv_norm, target,
+                 num_actions: int, inv_m: float, **kw):
+    """K1's int8 mode: kernels A, S x L and the dW kernels over chunks of
+    frames, then the grads dict and the loss vector."""
+    t_mb, f, n = obs.shape
+    names, hidden, out, _ = _run_int8(params, obs, action, (logp_old, value_old, adv_norm, target),
+                                      num_actions=num_actions, inv_m=inv_m,
+                                      chunk=chunk_frames(t_mb, n),
+                                      stages=STAGE_CHAIN | STAGE_REQUANT | STAGE_DW, **kw)
+    dw, db, dwpv, dbpv, sums = _unpack(out, [_round16(f), *hidden], HEAD_PAD, f)
+    grads = _merged_grads(names, dw, db, dwpv, dbpv, num_actions)
+    return grads, _loss_vector(sums, inv_m, kw["value_coef"], kw["entropy_coef"])
+
+
+def k1_int8_chain(params: Params, obs: torch.Tensor, action: torch.Tensor,
+                  logp_old: torch.Tensor, value_old: torch.Tensor, adv_norm: torch.Tensor,
+                  target: torch.Tensor, *, num_actions: int, activation: str, clip_eps: float,
+                  value_coef: float, entropy_coef: float, total_rows: int = 0) -> K1Int8Chain:
+    """Kernels A and S of K1's int8 mode alone, over the whole minibatch
+    (its workspace holds every frame, and dpre a buffer a layer): the
+    :class:`K1Int8Chain` of :func:`k1_int8_chain_plain`, whose operands are
+    views of the workspace.  On CUDA it adds one to
+    ``k1_int8_chain.launches``; on the CPU it runs
+    :func:`k1_int8_chain_plain`."""
+    scalars = (logp_old, value_old, adv_norm, target)
+    kw = dict(num_actions=num_actions, activation=activation, clip_eps=clip_eps,
+              value_coef=value_coef, entropy_coef=entropy_coef)
+    if _check(obs, scalars, action).type == "cpu":
+        return k1_int8_chain_plain(params, obs, action, *scalars, total_rows=total_rows, **kw)
+    check_mode("int8", activation, dense_layers(params)[1])
+    t_mb, f, n = obs.shape
+    inv_m = 1.0 / (total_rows or t_mb * n)
+    _, hidden, out, ws = _run_int8(params, obs, action, scalars, inv_m=inv_m, chunk=t_mb,
+                                   stages=STAGE_CHAIN | STAGE_REQUANT, dpre_per_layer=True, **kw)
+    k1_int8_chain.launches += 1
+    _, db, _, dbpv, sums = _unpack(out, [_round16(f), *hidden], HEAD_PAD, f)
+    row_h, row_dq, _ = _int8_rows(f, hidden)
+    op = lambda x, r, k: x.view(x.shape[0], t_mb, _npad(n))[r:r + k, :, :n]
+    h_top = hidden[-1]
+    return K1Int8Chain(op(ws.q, 0, f), [op(ws.q, r, h) for r, h in zip(row_h, hidden)],
+                       op(ws.b, 0, h_top), op(ws.b, h_top, num_actions + 1),
+                       [op(ws.f, r, h) for r, h in zip(ws.f_rows, hidden)],
+                       [op(ws.q, r, h) for r, h in zip(row_dq, hidden)], ws.cellmax, db,
+                       dbpv[:num_actions + 1], sums)
+
+
+def k1_int8_dw(chain: K1Int8Chain):
+    """K1 int8's dW kernels alone (kernel Q and the head's bf16 product) on
+    ``chain``'s operands and cell maxima (copied into a workspace of the
+    whole minibatch, zero past column N): the dW of :func:`k1_int8_dw_plain`.
+    On CUDA it adds one to ``k1_int8_dw.launches``; on the CPU it runs
+    :func:`k1_int8_dw_plain`."""
+    if chain.x_q.device.type == "cpu":
+        return k1_int8_dw_plain(chain)
+    f, t_mb, n = chain.x_q.shape
+    check_int8_cells(n)
+    hidden = [h.shape[0] for h in chain.hs]
+    num_actions = chain.dheads.shape[0] - 1
+    obs = torch.empty((t_mb, f, n), dtype=BF16, device=chain.x_q.device)  # shape only
+    ws = _int8_workspace(obs, hidden, t_mb, False)
+    for x in (ws.q, ws.b):
+        x.zero_()
+    ws.cellmax.copy_(chain.cellmax)
+    row_h, row_dq, _ = _int8_rows(f, hidden)
+    view = lambda x: x.view(x.shape[0], t_mb, _npad(n))
+    for r, x in [(0, chain.x_q), *zip(row_h, chain.hs), *zip(row_dq, chain.dp_q)]:
+        view(ws.q)[r:r + x.shape[0], :, :n] = x
+    view(ws.b)[:hidden[-1], :, :n] = chain.h_top
+    view(ws.b)[hidden[-1]:hidden[-1] + num_actions + 1, :, :n] = chain.dheads
+    out = _int8_call(obs, hidden, num_actions, ws, STAGE_DW)
+    k1_int8_dw.launches += 1
+    dw, _, dwpv, _, _ = _unpack(out, [_round16(f), *hidden], HEAD_PAD, f)
+    return dw, dwpv[:, :num_actions + 1]
+
+
+k1_int8_chain.launches = 0
+k1_int8_dw.launches = 0
+
+
 def _launch(params: Params, obs, action, logp_old, value_old, adv_norm, target,
             num_actions: int, activation: str, clip_eps: float,
             value_coef: float, entropy_coef: float, inv_m: float,
             quant: str = "none", bwd_bf16: bool = False):
-    """Pad the weights to K1's tiles, launch, and unpack the reduced sums
-    into a grads dict and the loss vector."""
+    """K1's modes in ``csrc/fused_update.cu`` (``int8fwd`` and ``bwd_bf16``):
+    pad the weights to its tiles, launch, and unpack the reduced sums into a
+    grads dict and the loss vector."""
     names, L, w, b = dense_layers(params)
     t_mb, f, n = obs.shape
     A = num_actions
@@ -848,18 +1253,11 @@ def _launch(params: Params, obs, action, logp_old, value_old, adv_norm, target,
         qh[:, :A + 1] = wq[L]
         qweights = [q0] + [x.contiguous() for x in wq[1:L]] + [qh]
         sw = sw.contiguous()
-        if quant == "int8":
-            # The int8 backward's head product takes the int8 head as bf16.
-            bf16_w[L] = wq[L][:, :A].to(BF16)
-            bf16_w[L + 1] = wq[L][:, A:].to(BF16)
     weights, biases = _pad_net(bf16_w, b, L, f, A)
 
     widths = [fp, *hidden]
     partial, out, blocks, stride = _partials(device, widths, HEAD_PAD,
                                              t_mb * -(-n // COLS), obs.shape)
-    cell = cell_cols(n)
-    cellmax = (torch.zeros((L, t_mb, -(-n // cell)), dtype=torch.float32, device=device)
-               if quant == "int8" else None)
     act32 = action.to(torch.int32).contiguous()
     scal = [x.contiguous() for x in (logp_old, value_old, adv_norm, target)]
     obs = obs.contiguous()
@@ -876,10 +1274,10 @@ def _launch(params: Params, obs, action, logp_old, value_old, adv_norm, target,
             clip_eps, -inv_m, entropy_coef * inv_m, value_coef * inv_m,
             partial.data_ptr(), blocks, stride, out.data_ptr(), stream,
             QUANT_CODE[quant], int(bwd_bf16), q_ptrs,
-            sw.data_ptr() if quantised else None,
-            cellmax.data_ptr() if cellmax is not None else None, cell)
+            sw.data_ptr() if quantised else None, None, 0)
     if err != 0:
         raise RuntimeError(f"fused PPO gradient kernel launch failed: CUDA error {err}")
+    fused_ppo_grads_fm.launches_by_kernel["fused_update.cu"] += 1
     dw, db, dwpv, dbpv, sums = _unpack(out, widths, HEAD_PAD, f)
     grads = _merged_grads(names, dw, db, dwpv, dbpv, A)
     return grads, _loss_vector(sums, inv_m, value_coef, entropy_coef)
@@ -906,14 +1304,17 @@ def fused_ppo_grads_fm(params: Params, obs: torch.Tensor, action: torch.Tensor,
     Returns ``(grads, losses)``: f32 grads keyed like ``params`` and
     ``losses = [total, policy, value, entropy, approx_kl]`` (means).  On
     CUDA this launches ``csrc/fused_update_bf16.cu`` (the bf16 mode: kernels
-    A and B over chunks of frames) or ``csrc/fused_update.cu`` (the other
-    modes) on the current stream
+    A and B over chunks of frames), ``csrc/fused_update_int8.cu`` (the int8
+    mode: kernels A, S x L, Q and B over chunks of frames) or
+    ``csrc/fused_update.cu`` (the other modes) on the current stream
     without synchronising and adds one to ``fused_ppo_grads_fm.launches``
     and to ``launches_by_mode[mode_name(quant, bwd_bf16)]``; on the CPU it
     runs :func:`fused_ppo_grads_fm_plain`."""
     scalars = (logp_old, value_old, adv_norm, target)
     device = _check(obs, scalars, action)
     check_mode(quant, activation, dense_layers(params)[1])
+    if quant == "int8":
+        check_int8_cells(obs.shape[2])
     kw = dict(num_actions=num_actions, activation=activation, clip_eps=clip_eps,
               value_coef=value_coef, entropy_coef=entropy_coef, quant=quant,
               bwd_bf16=bwd_bf16)
@@ -922,10 +1323,11 @@ def fused_ppo_grads_fm(params: Params, obs: torch.Tensor, action: torch.Tensor,
                                         total_rows=total_rows, **kw)
     t_mb, _, n = obs.shape
     inv_m = 1.0 / (total_rows or t_mb * n)
-    if quant == "none" and not bwd_bf16:
-        result = _launch_bf16(params, obs, action, *scalars, num_actions=num_actions,
-                              activation=activation, clip_eps=clip_eps, value_coef=value_coef,
-                              entropy_coef=entropy_coef, inv_m=inv_m)
+    if quant == "int8" or (quant == "none" and not bwd_bf16):
+        split = _launch_int8 if quant == "int8" else _launch_bf16
+        result = split(params, obs, action, *scalars, num_actions=num_actions,
+                       activation=activation, clip_eps=clip_eps, value_coef=value_coef,
+                       entropy_coef=entropy_coef, inv_m=inv_m)
     else:
         result = _launch(params, obs, action, *scalars, inv_m=inv_m, **kw)
     fused_ppo_grads_fm.launches += 1
@@ -934,9 +1336,13 @@ def fused_ppo_grads_fm(params: Params, obs: torch.Tensor, action: torch.Tensor,
 
 
 def zero_fm_counts() -> None:
+    """Set K1's counts to 0: its calls, by mode, and the launches of
+    ``csrc/fused_update.cu`` and of each int8 kernel (``INT8_KERNELS``; a
+    call launches each once a chunk, kernel S once a chunk and layer)."""
     fused_ppo_grads_fm.launches = 0
     fused_ppo_grads_fm.launches_by_mode = {
         mode_name(q, bb): 0 for q in QUANT_MODES for bb in (False, True)}
+    fused_ppo_grads_fm.launches_by_kernel = dict.fromkeys(("fused_update.cu", *INT8_KERNELS), 0)
 
 
 zero_fm_counts()
