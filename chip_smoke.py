@@ -248,7 +248,7 @@ def build_all(card: str):
         return lib._name, time.perf_counter() - t0
 
     libraries = (predict_cuda._library, fused_step._library, fused_update._library,
-                 fused_update._library_bf16, fused_update._library_int8, fused_update._library_rm,
+                 fused_update._library_bf16, fused_update._library_int8, fused_update._library_k4,
                  compaction_probe._library, fm_roofline._library, fm_kernel_probe._library)
     with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
         builds = [pool.submit(timed_build, b) for b in libraries]
@@ -391,6 +391,7 @@ K1_F64_RATIO = 2.0
 # this share of the entries.
 INT8_STEP_SHARE = 1e-3
 INT8_HOLD_FRAMES = 8  # frames of the full-width minibatch that the stage holds take
+OPERAND_COLS = 131072  # columns of an operand a float64 distance sums at once
 LEARNER = PPOConfig(num_envs=65536, rollout_length=128, num_minibatches=4,
                     update_epochs=4, hidden=HIDDEN)
 LEARNER_UPDATES = 3
@@ -476,31 +477,46 @@ def compare_grads(label: str, fn, plain, args, kw, tol, card: str, phase: int):
 
 
 def operand_distance(got: torch.Tensor, want: torch.Tensor):
-    """(relative L2, cos) of two tensors, summed in float64 a frame at a
-    time for K1 bf16's (rows, T, N) workspace operands."""
+    """(relative L2, cos) of two tensors, summed in float64 a frame and
+    OPERAND_COLS columns at a time for the split designs' (rows, T, N)
+    workspace operands (K4's: T = 1, N = M)."""
     got, want = (x.reshape(x.shape[0], -1, x.shape[-1]) for x in (got, want))
     dd = gg = ww = gw = 0.0
     for t in range(got.shape[1]):
-        g, w = got[:, t].double(), want[:, t].double()
-        dd += float((g - w).square().sum())
-        gg += float(g.square().sum())
-        ww += float(w.square().sum())
-        gw += float((g * w).sum())
+        for c0 in range(0, got.shape[2], OPERAND_COLS):
+            g = got[:, t, c0:c0 + OPERAND_COLS].double()
+            w = want[:, t, c0:c0 + OPERAND_COLS].double()
+            dd += float((g - w).square().sum())
+            gg += float(g.square().sum())
+            ww += float(w.square().sum())
+            gw += float((g * w).sum())
     return (dd / max(ww, 1e-300)) ** 0.5, gw / max((gg * ww) ** 0.5, 1e-300)
 
 
-def hold_k1_split(label: str, args, kw, card: str):
-    """K1 bf16's two kernels, each against its plain version on the card:
-    kernel A (``k1_chain``, the whole minibatch) against ``k1_chain_plain``,
-    its operands and bias grads within BF16_TOL's relative L2 and cos and
-    its loss sums (as means) within its rtol; then kernel B (``k1_dw``) on
-    kernel A's own operands against ``k1_dw_plain`` on the same operands,
-    each dW within K1_DW_REL.  Raises on the first miss.  (The kernels line's
-    error stays the whole call's: an operand's error is a bf16 rounding
-    flip, one ulp of the operand.)"""
+# The split designs' stage entries: (kernel A, its plain version, kernel B,
+# kernel B's plain version), kernel B's taking (chain, obs) as the call does.
+SPLIT_STAGES = {
+    "K1": (fused_update.k1_chain, fused_update.k1_chain_plain, fused_update.k1_dw,
+           fused_update.k1_dw_plain),
+    "K4": (fused_update.k4_chain, fused_update.k4_chain_plain, fused_update.k4_dw,
+           lambda chain, obs: fused_update.k1_dw_plain(chain, obs.t()[None])),
+}
+
+
+def hold_split(name: str, label: str, args, kw, card: str, phase: int, design: str = "K1"):
+    """A split design's two kernels (K1 bf16 and int8fwd: ``k1_chain`` /
+    ``k1_dw``; K4: ``k4_chain`` / ``k4_dw``), each against its plain version
+    on the card: kernel A (the whole minibatch) against its plain chain, its
+    operands and bias grads within BF16_TOL's relative L2 and cos and its
+    loss sums (as means) within its rtol; then kernel B on kernel A's own
+    operands against ``k1_dw_plain`` on the same operands, each dW within
+    K1_DW_REL.  Raises on the first miss.  (The kernels line's error stays
+    the whole call's: an operand's error is a bf16 rounding flip, one ulp of
+    the operand.)"""
+    chain_fn, chain_plain, dw_fn, dw_plain = SPLIT_STAGES[design]
     loss_rtol, rel_l2, min_cos = BF16_TOL
-    got = fused_update.k1_chain(*args, **kw)
-    want = fused_update.k1_chain_plain(*args, **kw)
+    got = chain_fn(*args, **kw)
+    want = chain_plain(*args, **kw)
     torch.cuda.synchronize()
     L = len(got.hs)
     pairs = [*[(f"h{l}", got.hs[l], want.hs[l]) for l in range(L)],
@@ -509,64 +525,86 @@ def hold_k1_split(label: str, args, kw, card: str):
              *[(f"db{l}", got.db[l][:, None, None], want.db[l][:, None, None]) for l in range(L)],
              ("dbpv", got.dbpv[:, None, None], want.dbpv[:, None, None])]
     worst_rel, worst_cos = 0.0, 1.0
-    for name, g, w in pairs:
+    for leaf, g, w in pairs:
         rel, cos = operand_distance(g, w)
         if not (rel <= rel_l2 and cos >= min_cos):
-            raise AssertionError(f"kernel A [{label}]: {name} relative L2 {rel:.3e}, cos {cos:.8f}")
+            raise AssertionError(f"{name} kernel A [{label}]: {leaf} relative L2 {rel:.3e}, "
+                                 f"cos {cos:.8f}")
         worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
     inv_m = 1.0 / args[2].numel()
     if not torch.allclose(got.sums * inv_m, want.sums * inv_m, rtol=loss_rtol, atol=LOSS_ATOL):
-        raise AssertionError(f"kernel A [{label}]: loss sums {got.sums.tolist()} vs plain "
+        raise AssertionError(f"{name} kernel A [{label}]: loss sums {got.sums.tolist()} vs plain "
                              f"{want.sums.tolist()}")
     del want
     obs = args[1]
-    dw, dwpv = fused_update.k1_dw(got, obs)
-    dw_p, dwpv_p = fused_update.k1_dw_plain(got, obs)
+    dw, dwpv = dw_fn(got, obs)
+    dw_p, dwpv_p = dw_plain(got, obs)
     torch.cuda.synchronize()
-    rels = {name: float((g.double() - w.double()).norm() / w.double().norm())
-            for name, g, w in [*[(f"dW{l}", dw[l], dw_p[l]) for l in range(L)],
+    rels = {leaf: float((g.double() - w.double()).norm() / w.double().norm())
+            for leaf, g, w in [*[(f"dW{l}", dw[l], dw_p[l]) for l in range(L)],
                                ("dWpv", dwpv, dwpv_p)]}
     worst_dw = max(rels, key=rels.get)
     if rels[worst_dw] > K1_DW_REL:
-        raise AssertionError(f"kernel B [{label}]: {worst_dw} relative L2 {rels[worst_dw]:.3e} "
+        raise AssertionError(f"{name} kernel B [{label}]: {worst_dw} relative L2 {rels[worst_dw]:.3e} "
                              f"> {K1_DW_REL}")
     shape = "x".join(str(d) for d in obs.shape)
-    print(f"phase 9 K1 bf16 kernel A vs k1_chain_plain [{label}], obs {shape}, "
+    chain_name = chain_plain.__name__
+    print(f"phase {phase} {name} kernel A vs {chain_name} [{label}], obs {shape}, "
           f"{kw['activation']}: worst operand / bias grad relative L2 {worst_rel:.3e} cos "
           f"{worst_cos:.8f}, loss sums {got.sums.tolist()}; kernel B vs k1_dw_plain on kernel "
           f"A's operands: worst {worst_dw} relative L2 {rels[worst_dw]:.3e} [{card}]")
 
 
-def k1_split_floor(rows: int, f: int = 35, num_actions: int = 18):
+def k1_split_floor(rows: int, f: int = 35, x_rows: int = 0):
     """(ms, bytes) of the split design's own floor by bytes at HIDDEN: kernel
     A reads the observations and the 5 per-column inputs and writes the
-    workspace; kernel B reads the workspace and the observations again."""
-    ws = 2 * (2 * sum(HIDDEN) + fused_update.HEAD_PAD)
-    nbytes = rows * (f * 2 + 5 * 4 + ws + ws + f * 2)
+    workspace; kernel B reads the workspace and, for K1, the observations
+    again (K4's workspace holds ``x_rows`` rows of x^T instead)."""
+    ws = 2 * (x_rows + 2 * sum(HIDDEN) + fused_update.HEAD_PAD)
+    nbytes = rows * (f * 2 + 5 * 4 + ws + ws + (0 if x_rows else f * 2))
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
-def k1_split_times(args, kw, card: str, k1_ms: float):
-    """CUDA-event ms of kernel A alone and kernel B alone over the wrapper's
-    own chunks (min of two readings of 5 calls), beside the whole call's."""
+def split_times(name: str, args, kw, card: str, call_ms: float, phase: int):
+    """CUDA-event ms of a split design's kernel A alone and kernel B alone
+    over the wrapper's own chunks (min of two readings of 5 calls), beside
+    the whole call's and the design's floor by bytes: K1 bf16 or int8fwd
+    (``kw["quant"]``, args feature-major) or K4 (name "K4", args rows).
+    Returns (A ms, B ms)."""
     params, obs, action, *scalars = args
-    t_mb, _, n = obs.shape
-    inv_m = 1.0 / (t_mb * n)
-    run = lambda stages: fused_update._run_bf16(
-        params, obs, action, scalars, num_actions=kw["num_actions"],
-        activation=kw["activation"], clip_eps=kw["clip_eps"], value_coef=kw["value_coef"],
-        entropy_coef=kw["entropy_coef"], inv_m=inv_m,
-        chunk=fused_update.chunk_frames(t_mb, n), stages=stages)
+    common = dict(num_actions=kw["num_actions"], activation=kw["activation"],
+                  clip_eps=kw["clip_eps"], value_coef=kw["value_coef"],
+                  entropy_coef=kw["entropy_coef"], inv_m=1.0 / action.numel())
+    if name == "K4":
+        rows, chunk = obs.shape[0], min(fused_update.CHUNK_COLS, obs.shape[0])
+        chunks, unit = -(-rows // chunk), "row(s)"
+        run = lambda stages: fused_update._run_k4(params, obs, action, scalars, chunk=chunk,
+                                                  stages=stages, **common)
+        floor_ms, nbytes = k1_split_floor(rows, x_rows=-(-obs.shape[1] // 16) * 16)
+    else:
+        t_mb, _, n = obs.shape
+        rows, chunk = t_mb * n, fused_update.chunk_frames(t_mb, n)
+        chunks, unit = -(-t_mb // chunk), "frame(s)"
+        run = lambda stages: fused_update._run_bf16(params, obs, action, scalars, chunk=chunk,
+                                                    stages=stages, quant=kw.get("quant", "none"),
+                                                    **common)
+        floor_ms, nbytes = k1_split_floor(rows)
     a_ms = min(cuda_ms(lambda: run(fused_update.STAGE_CHAIN), 5) for _ in range(2))
     b_ms = min(cuda_ms(lambda: run(fused_update.STAGE_DW), 5) for _ in range(2))
-    floor_ms, nbytes = k1_split_floor(t_mb * n)
-    b = grad_bound(t_mb * n)
-    print(f"phase 9 time K1 bf16 split T={t_mb} N={n}: call {k1_ms:.3f} ms = kernel A "
-          f"{a_ms:.3f} ms ({a_ms / k1_ms:.1%}) + kernel B {b_ms:.3f} ms ({b_ms / k1_ms:.1%}); "
-          f"chunks of {fused_update.chunk_frames(t_mb, n)} frame(s), "
-          f"{2 * -(-t_mb // fused_update.chunk_frames(t_mb, n))} launches of A and B; the "
-          f"design's floor by bytes {floor_ms:.3f} ms ({nbytes / 1e9:.2f} GB), the function's "
-          f"bound {b[0]:.3f} ms by {b[1]} [{card}]")
+    b = grad_bound(rows, kw.get("quant", "none"))
+    relu = ""
+    if kw["activation"] == "tanh" and kw.get("quant", "none") == "none":
+        # Kernel A on the same inputs with relu: no tanh, and K4 keeps no f32
+        # activations (relu's derivative is the same from the bf16 value).
+        common["activation"] = "relu"
+        relu_ms = min(cuda_ms(lambda: run(fused_update.STAGE_CHAIN), 5) for _ in range(2))
+        relu = f"; kernel A with relu {relu_ms:.3f} ms"
+    print(f"phase {phase} time {name} split, {rows} columns: call {call_ms:.3f} ms = kernel A "
+          f"{a_ms:.3f} ms ({a_ms / call_ms:.1%}) + kernel B {b_ms:.3f} ms ({b_ms / call_ms:.1%}); "
+          f"chunks of {chunk} {unit}, {2 * chunks} launches of A and B; the design's floor by "
+          f"bytes {floor_ms:.3f} ms ({nbytes / 1e9:.2f} GB), the function's bound {b[0]:.3f} ms "
+          f"by {b[1]}{relu} [{card}]")
+    return a_ms, b_ms
 
 
 def hold_k1_int8_split(label: str, args, kw, card: str) -> float:
@@ -787,6 +825,7 @@ def train(env_config: EnvConfig, cfg: PPOConfig, updates: int, label: str, card:
     launches = {"fused_ppo_grads_fm": dict(fused_ppo_grads_fm.launches_by_mode),
                 "by_kernel": dict(fused_ppo_grads_fm.launches_by_kernel),
                 "fused_ppo_grads": fused_ppo_grads.launches,
+                "k4_by_kernel": dict(fused_ppo_grads.launches_by_kernel),
                 "landing_sims_batched": predict_cuda.landing_sims_batched.launches,
                 "fused_rollout": fused_rollout.launches}
     frames = updates * cfg.rollout_length
@@ -818,6 +857,23 @@ def expect_launches(label: str, launches, k1_mode: str = "", k1=0, k4=0, landing
             or launches["landing_sims_batched"] != landing or launches["fused_rollout"]):
         raise AssertionError(f"{label}: launches {launches}, want {k1} K1 in mode "
                              f"{k1_mode or '-'}, {k4} K4, {landing} landing, no other")
+
+
+def expect_kernels(label: str, got: dict, want: dict, card: str, phase: int):
+    """The run launched each kernel exactly as often as ``want`` says (those
+    it does not name 0 times)."""
+    want = dict(dict.fromkeys(got, 0), **want)
+    if got != want:
+        raise AssertionError(f"{label}: kernel launches {got}, want {want}")
+    print(f"phase {phase} {label} kernel launches {got} [{card}]")
+
+
+def k1_chunks(cfg: PPOConfig) -> int:
+    """Chunks of K1's split kernels in one update: each call's frames in
+    chunks of ``chunk_frames``, update_epochs x num_minibatches calls."""
+    frames, cols = cfg.rollout_length // cfg.num_minibatches, 2 * cfg.num_envs
+    return (cfg.update_epochs * cfg.num_minibatches
+            * -(-frames // fused_update.chunk_frames(frames, cols)))
 
 
 def time_learner_phases(runner, train_step, cfg: PPOConfig, card: str, phase: int = 10):
@@ -1144,11 +1200,11 @@ def main() -> int:
                                     tanh_kw, card, 9)
     # K1 bf16's two kernels, each against its plain version; its distance
     # from float64; A's and B's share of the call.
-    hold_k1_split("full width", full, tanh_kw, card)
-    hold_k1_split("ragged", k1_inputs(3, 1000, "relu", 22), dict(K1_KW, activation="relu"),
-                  card)
+    hold_split("K1 bf16", "full width", full, tanh_kw, card, 9)
+    hold_split("K1 bf16", "ragged", k1_inputs(3, 1000, "relu", 22),
+               dict(K1_KW, activation="relu"), card, 9)
     hold_k1_float64(full, tanh_kw, card)
-    k1_split_times(full, tanh_kw, card, k1_ms)
+    split_times("K1 bf16", full, tanh_kw, card, k1_ms, 9)
 
     # Phase 10: the learner through its entry points at full width.  The
     # symmetric self-play run is the main path of K1; its first minibatch is
@@ -1162,6 +1218,9 @@ def main() -> int:
     k1_launches = learner_launches["fused_ppo_grads_fm"]["none"]
     expect_launches("self-play", learner_launches, "none",
                     k1=LEARNER_UPDATES * LEARNER.update_epochs * LEARNER.num_minibatches)
+    chunks = LEARNER_UPDATES * k1_chunks(LEARNER)
+    expect_kernels("self-play, K1 bf16", learner_launches["by_kernel"],
+                   {"bf16_chain": chunks, "bf16_dw": chunks}, card, 10)
     args, kw = first[0]
     k1_err = max(k1_err, compare_grads("K1 [first live minibatch of update 1]",
                                        fused_ppo_grads_fm, plain_fm, args, kw, BF16_TOL,
@@ -1177,17 +1236,21 @@ def main() -> int:
 
     # Phase 11: K4 and K1's other modes vs their plain versions on the card:
     # full width, ragged, and for int8 one dynamic-scale cell of 3000 columns
-    # (a frame whose width is no multiple of 128 is one cell).
+    # (a frame whose width is no multiple of 128 is one cell).  K4 and the
+    # split modes (int8fwd, int8) also stage by stage.
     plain_rm = fused_update.fused_ppo_grads_rm_plain
     rows = rows_of(full)
+    k4_ragged = rows_of(k1_inputs(1, 3000, "relu", 23))
     k4_err = compare_grads("K4 [full width]", fused_ppo_grads, plain_rm, rows, tanh_kw,
                            BF16_TOL, card, 11)
-    k4_err = max(k4_err, compare_grads(
-        "K4 [ragged]", fused_ppo_grads, plain_rm, rows_of(k1_inputs(1, 3000, "relu", 23)),
-        dict(K1_KW, activation="relu"), BF16_TOL, card, 11))
+    k4_err = max(k4_err, compare_grads("K4 [ragged]", fused_ppo_grads, plain_rm, k4_ragged,
+                                       dict(K1_KW, activation="relu"), BF16_TOL, card, 11))
     k4_ms, k4_plain_ms = time_grads(f"K4 M={K1_FULL[0] * K1_FULL[1]}", fused_ppo_grads,
                                     plain_rm, rows, tanh_kw, card, 11)
-    del rows
+    hold_split("K4", "full width", rows, tanh_kw, card, 11, "K4")
+    hold_split("K4", "ragged", k4_ragged, dict(K1_KW, activation="relu"), card, 11, "K4")
+    split_times("K4", rows, tanh_kw, card, k4_ms, 11)
+    del rows, k4_ragged
     ragged_tanh = k1_inputs(3, 1000, "tanh", 24)
     mode_stats = {}
     for name, mode_kw in K1_MODES.items():
@@ -1211,7 +1274,10 @@ def main() -> int:
                 (args[0], *[x[:INT8_HOLD_FRAMES] for x in args[1:]]), tanh_kw, card)
                 for case, args, _ in cases)
         if name == "int8fwd":
-            # int8fwd runs the stock bf16 backward, so it takes bwd_bf16 too.
+            # Its two kernels stage by stage, full width and ragged; int8fwd
+            # runs the stock bf16 backward, so it takes bwd_bf16 too.
+            for case, args, case_kw in cases:
+                hold_split("K1 int8fwd", case, args, case_kw, card, 11)
             cases.append(("full width, bf16 backward chain", full, dict(kw, bwd_bf16=True)))
         m_err = max(compare_grads(f"K1 {name} [{case}]", fused_ppo_grads_fm, plain_fm,
                                   args, case_kw, BF16_TOL, card, 11)
@@ -1223,6 +1289,8 @@ def main() -> int:
             k1_int8_split_times(full, tanh_kw, card, m_ms)
             print(f"phase 11 K1 int8: the largest share of operand entries one step apart "
                   f"{step_share:.3e} (bound {INT8_STEP_SHARE}) [{card}]")
+        if name == "int8fwd":
+            split_times("K1 int8fwd", full, kw, card, m_ms, 11)
         del cases
     del full, ragged_tanh
 
@@ -1234,6 +1302,12 @@ def main() -> int:
     k4_launches = k4_run["fused_ppo_grads"]
     expect_launches("self-play, K4", k4_run,
                     k4=K4_UPDATES * cfg.update_epochs * cfg.num_minibatches)
+    # Its two kernels once a chunk of CHUNK_COLS rows, K1's none.
+    rows = cfg.rollout_length // cfg.num_minibatches * 2 * cfg.num_envs
+    chunks = k4_launches * -(-rows // fused_update.CHUNK_COLS)
+    expect_kernels("self-play, K4", k4_run["k4_by_kernel"], {"k4_chain": chunks, "k4_dw": chunks},
+                   card, 12)
+    expect_kernels("self-play, K4 (K1's kernels)", k4_run["by_kernel"], {}, card, 12)
     time_learner_phases(runner, train_step, cfg, card, phase=12)
     del runner, train_step
     mode_launches = {}
@@ -1249,21 +1323,17 @@ def main() -> int:
         calls = cfg.update_epochs * cfg.num_minibatches
         expect_launches(f"self-play, K1 {name}", run, name, k1=calls)
         mode_launches[name] = run["fused_ppo_grads_fm"][name]
-        # Which kernels served: the int8 mode's split kernels (A, S a layer,
-        # Q and the head's B, each chunk of frames) and no fused_update.cu
-        # launch; the other modes fused_update.cu once a call.
-        frames, cols = cfg.rollout_length // cfg.num_minibatches, 2 * cfg.num_envs
-        chunks = calls * -(-frames // fused_update.chunk_frames(frames, cols))
-        per_chunk = {"int8_chain": 1, "int8_requant": len(cfg.hidden), "int8_dw": 1,
-                     "int8_head_dw": 1}
-        want = (dict({"fused_update.cu": 0}, **{k: chunks * v for k, v in per_chunk.items()})
-                if name == "int8" else dict({"fused_update.cu": calls},
-                                            **dict.fromkeys(per_chunk, 0)))
-        if run["by_kernel"] != want:
-            raise AssertionError(f"self-play, K1 {name}: kernel launches {run['by_kernel']}, "
-                                 f"want {want}")
-        print(f"phase 12 K1 {name} kernel launches {run['by_kernel']} [{card}]")
-        if name == "int8":
+        # Which kernels served, each chunk of frames: the int8 mode's split
+        # kernels (A, S a layer, Q and the head's B), int8fwd's the bf16
+        # mode's (A with the int8 forward, B); only bwd_bf16 launches
+        # fused_update.cu, once a call.
+        chunks = k1_chunks(cfg)
+        want = {"int8": {"int8_chain": chunks, "int8_requant": len(cfg.hidden) * chunks,
+                         "int8_dw": chunks, "int8_head_dw": chunks},
+                "int8fwd": {"bf16_chain": chunks, "bf16_dw": chunks},
+                "bwd_bf16": {"fused_update.cu": calls}}[name]
+        expect_kernels(f"self-play, K1 {name}", run["by_kernel"], want, card, 12)
+        if name in ("int8", "int8fwd"):
             time_learner_phases(runner, train_step, cfg, card, phase=12)
         del runner, train_step
 
@@ -1283,14 +1353,15 @@ def main() -> int:
         ("fused_ppo_grads_fm", "fused_update_bf16.cu", "pikazoo_tpu/train/fused_update.py:504",
          k1_launches, k1_err, k1_ms, k1_plain_ms, grad_bound(rows)),
     ]
+    mode_sources = {"int8": "fused_update_int8.cu", "int8fwd": "fused_update_bf16.cu",
+                    "bwd_bf16": "fused_update.cu"}
     for name in K1_MODES:
         m_err, m_ms, m_plain = mode_stats[name]
-        entries.append((f"fused_ppo_grads_fm[{name}]",
-                        "fused_update_int8.cu" if name == "int8" else "fused_update.cu",
+        entries.append((f"fused_ppo_grads_fm[{name}]", mode_sources[name],
                         "pikazoo_tpu/train/fused_update.py:504", mode_launches[name],
                         m_err, m_ms, m_plain,
                         grad_bound(rows, name if name != "bwd_bf16" else "none")))
-    entries.append(("fused_ppo_grads", "fused_update_rm.cu",
+    entries.append(("fused_ppo_grads", "k4_split.cu",
                     "pikazoo_tpu/train/fused_update.py:651", k4_launches, k4_err, k4_ms,
                     k4_plain_ms, grad_bound(rows)))
     for name, source, replaces, (e, t, tp, b, n) in (

@@ -2,16 +2,17 @@
 //
 // Replaces the TPU kernel pikazoo_tpu/train/fused_update.py:504
 // `fused_ppo_grads_fm` (kernel body `_fm_kernel`, :244; pallas_call :618)
-// in its modes the bf16 backward chain (`bwd_bf16`), and the int8 modes
-// `int8fwd` and `int8`.  The default bf16 mode runs fused_update_bf16.cu
-// (two kernels: the per-tile chain and the long-K dW products); its
-// template instance here (Q_NONE, no bwd_bf16) is no longer launched.  The
-// int8 mode runs fused_update_int8.cu (the same split, with a requantise
-// kernel a layer); its instance here (Q_FULL) is no longer launched either.
+// in its modes the bf16 backward chain (`bwd_bf16`, after the bf16 or the
+// int8fwd forward), and the int8 modes `int8fwd` and `int8`.  The default
+// bf16 mode and int8fwd run fused_update_bf16.cu (two kernels: the per-tile
+// chain and the long-K dW products); their template instances here (Q_NONE
+// and Q_FWD without bwd_bf16) are no longer launched.  The int8 mode runs
+// fused_update_int8.cu (the same split, with a requantise kernel a layer);
+// its instance here (Q_FULL) is no longer launched either.
 // Python side:
 // pikazoo_tpu_torch/train/fused_update.py, which also holds the plain PyTorch
-// version this kernel is held against.  Device code shared with K4 (the
-// row-major kernel, fused_update_rm.cu) is in ppo_grads.cuh.
+// version this kernel is held against.  Device code shared with the probe
+// kernels is in ppo_grads.cuh.
 //
 // What it computes, for a minibatch of M = T*N columns (obs (T, F, N) bf16
 // feature-major, per-column action / logp_old / value_old / adv / target):

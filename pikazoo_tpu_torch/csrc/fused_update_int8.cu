@@ -28,9 +28,11 @@
 //
 // What this design does about it: the launch boundary stays the barrier,
 // but nothing is recomputed, and the dW products leave the tile loop.
-// - Kernel A (chain_kernel) walks 64-column tiles of a chunk of frames: x_q,
-//   the int8 forward on mma.sync m16n8k32 (s8 -> s32, bias add, tanh and q127
-//   on the accumulators), the merged head, the loss and dheads (ppo_column),
+// - Kernel A (int8_chain_kernel) walks 64-column tiles of a chunk of
+//   frames: x_q, the int8 forward on mma.sync m16n8k32 (s8 -> s32, bias add,
+//   tanh and q127 on the accumulators; this device code, mma_s8_add and
+//   dequant_add, is k1_split.cuh's, shared with the int8fwd mode), the
+//   merged head, the loss and dheads (ppo_column),
 //   and the head's backward dh on bf16 mma.sync.  It writes x_q and h_q_l
 //   (int8), bf16(h_top) and bf16(dheads), and the f32 dpre_{L-1} to a
 //   workspace, and takes dpre_{L-1}'s cell maxima with an atomicMax on the
@@ -84,82 +86,21 @@
 
 #include "k1_split.cuh"
 
-#define COLS 64             // columns per tile of kernels A and S
-#define WARPS 16
+// COLS (columns per tile of kernels A and S), LDH, LDZ, HEAD_PAD and S_IN
+// are k1_split.cuh's.
+#define WARPS A_WARPS       // warp_tile's warps
 #define THREADS (32 * WARPS)
 #define LT (COLS + 16)      // row stride (bytes) of the [feature][column] int8 staging tile
-#define LDH (COLS + 8)      // row stride of the bf16 dheads tile (elements)
-#define LDZ (COLS + 8)      // row stride of the head's f32 block
-#define HEAD_PAD 32
 #define KPAD 16             // bytes past K in a shared int8 row: the fragment loads miss no bank twice
 #define LDHB (HEAD_PAD + 8) // row stride of the head's bf16 weights (elements)
 #define QB 64               // kernel Q's output tile: BT rows x QB columns
 #define QLD (KB + 16)       // row stride (bytes) of kernel Q's operand slices
 #define MAX_QTILES 64
-#define S_IN (1.0f / 127.0f)
 #define MAX_INT8_CELL 133144  // columns of the widest cell whose int32 sums cannot overflow
-#define SMEM_LIMIT 232448
 #define S_LOADS (256 * (COLS / 4) / THREADS)      // float4 of dpre_l a thread and tile, at most
 #define S_HB_LOADS (256 * (COLS / 16) / THREADS)  // 16-byte pieces of h_q_{l-1} a thread and tile
 
 // ------------------------------------------------------------ helpers --
-__device__ __forceinline__ int8_t q127(float v) {
-    return (int8_t)fminf(fmaxf(rintf(__fmul_rn(v, 127.0f)), -127.0f), 127.0f);
-}
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A warp's share of an (M x COLS) output: one 16-row tile, nb 8-column
-// blocks from column n0.  Up to four warps split a tile's columns when M is
-// small, so that more warps work.
-struct WarpTile {
-    int m0, n0, nb;
-    bool active;
-};
-
-__device__ __forceinline__ WarpTile warp_tile(int M) {
-    const int warp = threadIdx.x >> 5, mt = M >> 4;
-    int nwg = 1;
-    while (nwg < 4 && mt * nwg * 2 <= WARPS) nwg *= 2;
-    WarpTile w;
-    w.nb = 8 / nwg;
-    w.m0 = (warp / nwg) * 16;
-    w.n0 = (warp % nwg) * w.nb * 8;
-    w.active = warp / nwg < mt;
-    return w;
-}
-
-// acc = the warp's share of w (M x K int8, row m at w + m * ldw) . act^T,
-// act (COLS x K int8, column n at act + n * lda), on m16n8k32 s8 -> s32:
-// exact sums.  K % 32 == 0.  Fragments (PTX ISA): A rows g and g+8, k 4tg..
-// and 16+4tg..; B column g, the same k; C rows g (c0, c1) and g+8 (c2, c3),
-// columns 2tg and 2tg+1.  w may lie in shared or global memory.
-__device__ __forceinline__ void mma_s8_tile(int (&acc)[8][4], const WarpTile& wt, const int8_t* w,
-                                            int ldw, const int8_t* act, int lda, int K) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[j][i] = 0;
-    const int8_t* a_lo = w + (size_t)(wt.m0 + g) * ldw + tg * 4;
-    const int8_t* a_hi = a_lo + (size_t)8 * ldw;
-    const int8_t* b_col = act + (wt.n0 + g) * lda + tg * 4;
-    for (int k = 0; k < K; k += 32) {
-        const uint32_t a[4] = {ld32(a_lo + k), ld32(a_hi + k), ld32(a_lo + k + 16),
-                               ld32(a_hi + k + 16)};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            if (j < wt.nb) {
-                const int8_t* bp = b_col + j * 8 * lda + k;
-                const uint32_t b[2] = {ld32(bp), ld32(bp + 16)};
-                mma_s8(acc[j], a, b);
-            }
-        }
-    }
-}
-
 // The block's max of m (>= 0) into *slot with an atomicMax on the float
 // bits.  Every thread calls it; the caller syncs before warp_max is reused.
 __device__ __forceinline__ void cell_max(float m, float* warp_max, float* slot) {
@@ -186,7 +127,7 @@ __device__ __forceinline__ void stage_weights(int8_t* dst, const int8_t* src, in
 }
 
 // ----------------------------------------------------------- kernel A --
-struct ParamsA {
+struct ParamsA8 {
     const bf16* obs;
     const int* action;
     const float *logp_old, *value_old, *adv, *target;
@@ -209,7 +150,7 @@ struct ParamsA {
     int sm_w[MAX_LAYERS];
 };
 
-__global__ void __launch_bounds__(THREADS, 1) chain_kernel(const __grid_constant__ ParamsA p) {
+__global__ void __launch_bounds__(THREADS, 1) int8_chain_kernel(const __grid_constant__ ParamsA8 p) {
     extern __shared__ __align__(128) unsigned char smem[];
     int8_t* tq = (int8_t*)(smem + p.sm_tq);
     float* z = (float*)(smem + p.sm_z);
@@ -312,10 +253,8 @@ __global__ void __launch_bounds__(THREADS, 1) chain_kernel(const __grid_constant
 #pragma unroll
                     for (int hh = 0; hh < 2; ++hh) {
                         const int r = wt.m0 + g + 8 * hh, c = wt.n0 + j * 8 + 2 * tg;
-                        const int8_t q0 = q127(tanhf(
-                            __fadd_rn(__fmul_rn((float)acc[j][2 * hh], scale), bias[boff + r])));
-                        const int8_t q1 = q127(tanhf(
-                            __fadd_rn(__fmul_rn((float)acc[j][2 * hh + 1], scale), bias[boff + r])));
+                        const int8_t q0 = q127(tanhf(dequant_add(acc[j][2 * hh], scale, bias[boff + r])));
+                        const int8_t q1 = q127(tanhf(dequant_add(acc[j][2 * hh + 1], scale, bias[boff + r])));
                         out[c * lda + r] = q0;
                         out[(c + 1) * lda + r] = q1;
                         *reinterpret_cast<uint16_t*>(tq + r * LT + c) =
@@ -801,7 +740,7 @@ extern "C" int k1_int8_launch(
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
 
-    ParamsA pa = {};
+    ParamsA8 pa = {};
     ParamsS ps = {};
     int sm_a = 0, sm_s = 0;
     if (stages & 1) {
@@ -868,7 +807,7 @@ extern "C" int k1_int8_launch(
         // The hidden weights in shared memory where they fit, else read from L2.
         pa.smem_w = sm <= SMEM_LIMIT;
         sm_a = pa.smem_w ? sm : sm_base;
-        err = cudaFuncSetAttribute(chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm_a);
+        err = cudaFuncSetAttribute(int8_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm_a);
         if (err != cudaSuccess) return (int)err;
     }
     if (stages & 4) {
@@ -951,7 +890,7 @@ extern "C" int k1_int8_launch(
             pa.t0 = t0;
             pa.frames = n_frames;
             pa.first = t0 == 0;
-            chain_kernel<<<blocks_a, THREADS, sm_a, s>>>(pa);
+            int8_chain_kernel<<<blocks_a, THREADS, sm_a, s>>>(pa);
             err = cudaGetLastError();
             if (err != cudaSuccess) return (int)err;
         }

@@ -1,8 +1,11 @@
-// K1's split design, shared by its bf16 mode (fused_update_bf16.cu) and its
-// int8 mode (fused_update_int8.cu): the PTX helpers of both, and kernel B
-// of the bf16 mode (dw_kernel), which computes bf16 dW products as long-K
-// products over a workspace's columns.  The int8 mode runs it for the
-// head's dW.  Its design is described in fused_update_bf16.cu.
+// The split design of the clipped-PPO gradient: a per-tile chain kernel
+// (kernel A) that writes the dW products' operands to a workspace, and a
+// long-K dW kernel (kernel B) that computes each dW from it.  Shared by K1's
+// bf16 and int8fwd modes (fused_update_bf16.cu), K1's int8 mode
+// (fused_update_int8.cu, which runs kernel B for the head's dW and shares
+// the int8 forward's device code below) and K4 (k4_split.cu).  The design is
+// described in fused_update_bf16.cu; what K4 and int8fwd change in kernel A
+// is described at chain_kernel.
 
 #pragma once
 
@@ -17,6 +20,18 @@ using namespace ppo;
 #define LDB (KB + 8)
 #define B_STAGES 3
 #define MAX_TILES 64
+#define COLS 64          // columns per tile of a chain kernel
+#define LDH (COLS + 8)   // row stride of kernel A's bf16 tiles (elements)
+#define LDZ (COLS + 8)   // row stride of the head's f32 block
+#define HEAD_PAD 32      // K1's merged head (A+1 rows, padded); the workspace's dheads rows
+#define HEAD_SPLIT 48    // K4's head: the policy rows padded to 32, then the value row
+#define VALUE_ROW 32     // the value's row of K4's head
+#define A_WARPS 16       // warps of kernel A that compute
+#define A_PRODUCERS 128  // threads (a warpgroup) of kernel A that stream the weights
+#define A_THREADS (32 * A_WARPS + A_PRODUCERS)
+#define MAX_PRODUCTS (2 * MAX_LAYERS + 2)
+#define SMEM_LIMIT 232448
+#define S_IN (1.0f / 127.0f)  // the static dequant scale of int8 activations
 
 // ---------------------------------------------------------------- PTX --
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -65,6 +80,653 @@ __device__ __forceinline__ void mma_add(float (&acc)[4], const uint32_t (&a)[4],
           "f"(0.0f), "f"(0.0f));
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
+}
+
+// ---------------------------------------------------- the warp's tile --
+// A warp's share of an (M x COLS) output of a chain kernel's 16 compute
+// warps: one 16-row tile, nb 8-column blocks from column n0.  Up to four
+// warps (nwg, this one the ng-th) split a tile's columns when M is small, so
+// that more warps work.  A function of M alone: every product with M rows
+// gives a thread the same outputs.
+struct WarpTile {
+    int m0, n0, nb, ng, nwg;
+    bool active;
+};
+
+__device__ __forceinline__ WarpTile warp_tile(int M) {
+    const int warp = threadIdx.x >> 5, mt = M >> 4;
+    int nwg = 1;
+    while (nwg < 4 && mt * nwg * 2 <= A_WARPS) nwg *= 2;
+    WarpTile w;
+    w.nwg = nwg;
+    w.nb = 8 / nwg;
+    w.ng = warp % nwg;
+    w.m0 = (warp / nwg) * 16;
+    w.n0 = w.ng * w.nb * 8;
+    w.active = warp / nwg < mt;
+    return w;
+}
+
+// ------------------------------------------------ the int8 forward --
+// Shared by K1 int8's kernel A and the int8fwd chain: x and tanh outputs
+// quantised with the static scale 127, the products on mma.sync m16n8k32
+// (s8 -> s32, exact), the weight scale riding the bias add.
+__device__ __forceinline__ int8_t q127(float v) {
+    return (int8_t)fminf(fmaxf(rintf(__fmul_rn(v, 127.0f)), -127.0f), 127.0f);
+}
+
+__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The pre-activation of an int8 forward product: float(acc) * scale + bias,
+// scale = sw_l / 127, each step rounded as the plain version's f32 ops.
+__device__ __forceinline__ float dequant_add(int acc, float scale, float bias) {
+    return __fadd_rn(__fmul_rn((float)acc, scale), bias);
+}
+
+// acc += the warp's share of w (M x K int8, row m at w + m * ldw) . act^T,
+// act (COLS x K int8, column n at act + n * lda), on m16n8k32 s8 -> s32:
+// exact sums.  K % 32 == 0.  Fragments (PTX ISA): A rows g and g+8, k 4tg..
+// and 16+4tg..; B column g, the same k; C rows g (c0, c1) and g+8 (c2, c3),
+// columns 2tg and 2tg+1.  w may lie in shared or global memory.  Row
+// strides of 16 bytes past a multiple of 32 (KPAD) keep the 32-bit loads
+// off each other's banks.
+__device__ __forceinline__ void mma_s8_add(int (&acc)[8][4], const WarpTile& wt, const int8_t* w,
+                                           int ldw, const int8_t* act, int lda, int K) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+    const int8_t* a_lo = w + (size_t)(wt.m0 + g) * ldw + tg * 4;
+    const int8_t* a_hi = a_lo + (size_t)8 * ldw;
+    const int8_t* b_col = act + (wt.n0 + g) * lda + tg * 4;
+    for (int k = 0; k < K; k += 32) {
+        const uint32_t a[4] = {ld32(a_lo + k), ld32(a_hi + k), ld32(a_lo + k + 16),
+                               ld32(a_hi + k + 16)};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            if (j < wt.nb) {
+                const int8_t* bp = b_col + j * 8 * lda + k;
+                const uint32_t b[2] = {ld32(bp), ld32(bp + 16)};
+                mma_s8(acc[j], a, b);
+            }
+        }
+    }
+}
+
+__device__ __forceinline__ void mma_s8_tile(int (&acc)[8][4], const WarpTile& wt, const int8_t* w,
+                                            int ldw, const int8_t* act, int lda, int K) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0;
+    mma_s8_add(acc, wt, w, ldw, act, lda, K);
+}
+
+// ----------------------------------------------------------- kernel A --
+// The chain kernel, in three modes:
+// - CHAIN_BF16 (K1's bf16 mode): obs feature-major (T, F, N); the forward,
+//   the merged head (HEAD_PAD rows, the value in row A), the loss and
+//   dheads, the backward chain down to dpre_0 with the derivative from
+//   bf16(h).
+// - CHAIN_INT8FWD (K1's int8fwd mode): the forward on int8 products (x and
+//   each h quantised with the static scale, the weights per tensor, streamed
+//   through the ring as int8 slices twice as deep), keeping bf16(h_f), the
+//   f32 tanh's round (not the dequantised h_q, which feeds only the next
+//   product); then the bf16 mode's backward, unchanged, on the bf16 weights.
+// - CHAIN_K4 (K4, row-major): a chunk of rows is one "frame" of N columns,
+//   the obs and per-row pointers offset to the chunk's first row.  Each tile
+//   reads its 64 rows of F bf16 (one contiguous block) and transposes them
+//   in shared memory, and writes x^T to the workspace for kernel B.  The
+//   head is split (HEAD_SPLIT rows: the policy in 0..A-1, the value in
+//   VALUE_ROW): its dh product sums K = 48 in three 16-row chunks with a
+//   rounded add after each, so the value head's product is added in f32 to
+//   the finished policy product, the TPU kernel's two products summed.  The
+//   derivative is taken from the f32 activation (tanh): each compute thread
+//   keeps the f32 values of its own forward outputs in a per-block scratch
+//   in device memory (64 KB a layer and block, rewritten every tile, so it
+//   stays in L2) and reads them back in the backward, where the same warp
+//   tile gives it the same outputs.  relu's derivative is the same from
+//   either.  The workspace's dheads rows, the bias grads and the kernel's
+//   outputs are in K1's merged layout, so kernel B and the wrapper are K1's.
+enum { CHAIN_BF16 = 0, CHAIN_INT8FWD = 1, CHAIN_K4 = 2 };
+
+// A product's weights: W_FWD W (K, M) bf16 row-major, the product W^T act;
+// W_DH W (M, K) bf16 row-major, W act; W_FWD8 W^T (M, K) int8 row-major, K
+// a multiple of 32, the product W^T act on the s8 tensor cores.
+enum { W_FWD = 0, W_DH = 1, W_FWD8 = 2 };
+
+// One product of the chain: out (M x COLS) = Wop (M x K) . act (K x COLS).
+struct Prod {
+    const void* w;
+    int ldw, M, K, kind;  // ldw: elements of a row of w
+    int slice0, slices;   // first slice in the tile's stream, and the count
+};
+
+struct ParamsA {
+    const bf16* obs;
+    const int* action;
+    const float *logp_old, *value_old, *adv, *target;
+    const float* b[MAX_LAYERS + 1];
+    const float* sw;           // int8fwd: the L+1 weight scales
+    Prod prod[MAX_PRODUCTS];
+    int slices_per_tile, stage_elems;
+    int hidden[MAX_LAYERS];
+    int L, F, Fp, A, relu, N, Npad, t0, frames, lda;
+    float clip, neg_inv_m, ent_scale, val_scale;
+    bf16* ws;                  // (rows, ws_cols) bf16
+    long long ws_cols;
+    long long off_x, off_h[MAX_LAYERS], off_dh, off_dp[MAX_LAYERS];  // elements
+    float2* hkeep;             // K4 tanh: (blocks, L, 16, 32 * A_WARPS) f32 activations
+    float* partial;            // (blocks, stride): bias grads (K1's layout), then 4 loss sums
+    int stride, first, bias_total;
+    int sm_x, sm_h[MAX_LAYERS], sm_dh, sm_z, sm_loss, sm_bias, sm_bgrad, sm_rsum, sm_ring;
+    int sm_act[2];             // int8fwd: the int8 act tiles [column][feature], lda bytes a column
+};
+
+// Weight slices are KS contraction rows deep (int8 slices 2 KS): 64 where
+// shared memory allows three stages of them, else 32.  A dh product's slice
+// is stored [m][KS + 8], an int8 slice [m][2 KS + 16] bytes: the same bytes.
+template <int NST, int KS>
+__device__ __forceinline__ void load_slice(const ParamsA& p, bf16* ring, int q) {
+    const int s = q % p.slices_per_tile;
+    int i = 0;
+    while (s >= p.prod[i].slice0 + p.prod[i].slices) ++i;
+    const Prod& pr = p.prod[i];
+    const int depth = pr.kind == W_FWD8 ? 2 * KS : KS;
+    const int k0 = (s - pr.slice0) * depth, d = min(depth, pr.K - k0);
+    char* dst = (char*)(ring + (q % NST) * p.stage_elems);
+    // fwd: rows k0..k0+d of W (K, M), stored [k][M + 8]; dh: columns
+    // k0..k0+d of W (M, K), stored [m][KS + 8]; fwd8: bytes k0..k0+d of each
+    // row of W^T (M, K).  Rows of per_row 16-byte pieces, which the producer
+    // threads walk without a division a piece.
+    int rows, per_row, ld, src_ld;
+    const char* src;
+    if (pr.kind == W_FWD) {
+        rows = d, per_row = pr.M >> 3, ld = (pr.M + 8) * 2, src_ld = pr.ldw * 2;
+        src = (const char*)((const bf16*)pr.w + (size_t)k0 * pr.ldw);
+    } else if (pr.kind == W_DH) {
+        rows = pr.M, per_row = d >> 3, ld = (KS + 8) * 2, src_ld = pr.ldw * 2;
+        src = (const char*)((const bf16*)pr.w + k0);
+    } else {
+        rows = pr.M, per_row = d >> 4, ld = 2 * KS + 16, src_ld = pr.ldw;
+        src = (const char*)pr.w + k0;
+    }
+    const int pt = threadIdx.x - 32 * A_WARPS, dr = A_PRODUCERS / per_row;
+    const int dx = A_PRODUCERS - dr * per_row;
+    int r = pt / per_row, x = pt - r * per_row;
+    while (r < rows) {
+        cp_async16(dst + r * ld + x * 16, src + (size_t)r * src_ld + x * 16);
+        r += dr;
+        x += dx;
+        if (x >= per_row) {
+            x -= per_row;
+            ++r;
+        }
+    }
+}
+
+// The warp's mmas over one weight slice of depth d: act is the product's
+// right operand (K x COLS, row stride LDH) in shared memory, rows k.
+template <bool FWD>
+__device__ __forceinline__ void mma_slice(float (&acc)[8][4], const WarpTile& wt, const bf16* w,
+                                          int ldw, const bf16* act, int k0, int d) {
+    const int lane = threadIdx.x & 31, mi = lane >> 3, r = lane & 7;
+    for (int kk = 0; kk < d; kk += 16) {
+        uint32_t a[4];
+        if (FWD)   // W^T from [k][m]: matrices (k +0/+8) x (m +0/+8), transposed
+            ldsm_x4_t(a, w + (kk + r + (mi >> 1) * 8) * ldw + wt.m0 + (mi & 1) * 8);
+        else       // W from [m][k]
+            ldsm_x4(a, w + (wt.m0 + (lane & 15)) * ldw + kk + (lane >> 4) * 8);
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+            if (j < wt.nb) {
+                uint32_t b[4];  // (k +0, n j), (k +8, n j), (k +0, n j+1), (k +8, n j+1)
+                ldsm_x4_t(b, act + (k0 + kk + r + (mi & 1) * 8) * LDH + wt.n0 +
+                                 (j + (mi >> 1)) * 8);
+                mma_add(acc[j], a, b[0], b[1]);
+                mma_add(acc[j + 1], a, b[2], b[3]);
+            }
+        }
+    }
+}
+
+// Stream the product's weight slices through the ring and run the warp's
+// mmas; q is the block's running slice count.  T = float: a bf16 product,
+// act bf16 [k][column] (LDH); T = int: an int8 product, act int8
+// [column][k] (p.lda bytes), exact int32 sums.
+template <int NST, int KS, typename T>
+__device__ __forceinline__ void product(const ParamsA& p, const Prod& pr, bf16* ring, int& q,
+                                        int q_end, const void* act, T (&acc)[8][4],
+                                        const WarpTile& wt) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0;
+    // Only the producers issue copies, so the compute warps never wait on
+    // the copies' issue; the producers' own wait then the barrier publish a
+    // slice to every warp.
+    const bool producer = threadIdx.x >= 32 * A_WARPS;
+    for (int s = 0; s < pr.slices; ++s, ++q) {
+        if (producer) cp_wait<NST - 2>();  // slice q landed
+        __syncthreads();  // and every warp is done with slice q-1's stage
+        if (producer) {
+            if (q + NST - 1 < q_end) load_slice<NST, KS>(p, ring, q + NST - 1);
+            cp_commit();
+        }
+        if (wt.active) {
+            const bf16* w = ring + (q % NST) * p.stage_elems;
+            if constexpr (std::is_same<T, int>::value) {
+                const int k0 = s * 2 * KS;
+                mma_s8_add(acc, wt, (const int8_t*)w, 2 * KS + 16, (const int8_t*)act + k0, p.lda,
+                           min(2 * KS, pr.K - k0));
+            } else {
+                const int k0 = s * KS, d = min(KS, pr.K - k0);
+                if (pr.kind == W_FWD)
+                    mma_slice<true>(acc, wt, w, pr.M + 8, (const bf16*)act, k0, d);
+                else
+                    mma_slice<false>(acc, wt, w, KS + 8, (const bf16*)act, k0, d);
+            }
+        }
+    }
+}
+
+// rows x COLS bf16 from shared memory (row stride LDH) to the workspace,
+// 16 bytes a thread; threads t0, t0 + nt, ...
+__device__ __forceinline__ void copy_out(const bf16* src, int rows, bf16* dst, long long ld,
+                                         int t0, int nt) {
+    for (int i = t0; i < rows * (COLS / 8); i += nt) {
+        const int r = i >> 3, x = i & 7;
+        *reinterpret_cast<uint4*>(dst + r * ld + x * 8) =
+            *reinterpret_cast<const uint4*>(src + r * LDH + x * 8);
+    }
+}
+
+// K4: the tile's nvalid rows of F bf16 (one contiguous block from src,
+// 16-byte aligned) transposed into xs [f][c]; columns >= nvalid zero (rows
+// >= F the caller zeroed once).
+__device__ __forceinline__ void load_rows(bf16* xs, const bf16* src, int F, int nvalid) {
+    const int n = nvalid * F;
+    const bf16 zero = __float2bfloat16(0.0f);
+    for (int i = threadIdx.x; i * 8 < n; i += A_THREADS) {
+        uint4 u = make_uint4(0u, 0u, 0u, 0u);
+        const bf16* v = reinterpret_cast<const bf16*>(&u);
+        if (i * 8 + 8 <= n) {
+            u = *reinterpret_cast<const uint4*>(src + i * 8);
+        } else {
+            bf16* w = reinterpret_cast<bf16*>(&u);
+            for (int e = 0; i * 8 + e < n; ++e) w[e] = src[i * 8 + e];
+        }
+        int r = i * 8 / F, f = i * 8 - r * F;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            if (i * 8 + e < n) xs[f * LDH + r] = v[e];
+            if (++f == F) {
+                f = 0;
+                ++r;
+            }
+        }
+    }
+    for (int i = threadIdx.x; i < F * (COLS - nvalid); i += A_THREADS) {
+        const int f = i / (COLS - nvalid), c = nvalid + i % (COLS - nvalid);
+        xs[f * LDH + c] = zero;
+    }
+}
+
+template <int MODE, int NST, int KS>
+__global__ void __launch_bounds__(A_THREADS, 1) chain_kernel(const __grid_constant__ ParamsA p) {
+    constexpr int HR = MODE == CHAIN_K4 ? HEAD_SPLIT : HEAD_PAD;  // the head's rows
+    extern __shared__ __align__(128) unsigned char smem[];
+    bf16* xs = (bf16*)(smem + p.sm_x);
+    bf16* dhb = (bf16*)(smem + p.sm_dh);
+    float* z = (float*)(smem + p.sm_z);
+    float* bias = (float*)(smem + p.sm_bias);
+    float* bgrad = (float*)(smem + p.sm_bgrad);
+    float* rsum = (float*)(smem + p.sm_rsum);
+    float* closs = (float*)(smem + p.sm_loss);  // [4][COLS], then 4 totals
+    float* lacc = closs + 4 * COLS;
+    bf16* ring = (bf16*)(smem + p.sm_ring);
+    const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, tg = lane & 3;
+    const int L = p.L, A = p.A;
+    const int vrow = MODE == CHAIN_K4 ? VALUE_ROW : A;
+    const int hidden_total = p.bias_total - HEAD_PAD;
+    const bool keep = MODE == CHAIN_K4 && !p.relu;  // the f32 activations kept for the backward
+    const bf16 zero = __float2bfloat16(0.0f);
+
+    {
+        int pos = 0;
+        for (int l = 0; l <= L; ++l) {
+            const int n = l < L ? p.hidden[l] : HR;
+            for (int i = tid; i < n; i += A_THREADS) bias[pos + i] = p.b[l][i];
+            pos += n;
+        }
+        for (int i = tid; i < hidden_total + HR; i += A_THREADS) bgrad[i] = 0.0f;
+        if (tid < 4) lacc[tid] = 0.0f;
+        if (MODE == CHAIN_K4)
+            for (int i = tid; i < (p.Fp - p.F) * COLS; i += A_THREADS)
+                xs[(p.F + i / COLS) * LDH + i % COLS] = zero;
+    }
+
+    const int tpf = p.Npad / COLS;
+    const int tiles = p.frames * tpf;
+    const int first = (int)((long long)tiles * blockIdx.x / gridDim.x);
+    const int last = (int)((long long)tiles * (blockIdx.x + 1) / gridDim.x);
+    const int q_end = (last - first) * p.slices_per_tile;
+    if (tid >= 32 * A_WARPS) {
+#pragma unroll
+        for (int i = 0; i < NST - 1; ++i) {
+            if (i < q_end) load_slice<NST, KS>(p, ring, i);
+            cp_commit();
+        }
+    }
+    int q = 0;
+    float acc[8][4];
+    float2* hk = keep ? p.hkeep + (size_t)blockIdx.x * L * 16 * (32 * A_WARPS) + tid : nullptr;
+
+    for (int tile = first; tile < last; ++tile) {
+        const int tr = tile / tpf, c0 = (tile - tr * tpf) * COLS;
+        const int t = p.t0 + tr;
+        const int nvalid = min(COLS, p.N - c0);
+        const long long wc0 = (long long)tr * p.Npad + c0;
+
+        // ---- observations (Fp, COLS): zero rows >= F and columns >= nvalid.
+        if constexpr (MODE == CHAIN_K4) {
+            load_rows(xs, p.obs + (size_t)c0 * p.F, p.F, nvalid);
+        } else if constexpr (MODE == CHAIN_INT8FWD) {
+            // x_q to act tile 0 [column][feature]; the last tile's dheads
+            // may share its bytes (every thread is past their copy-out).
+            __syncthreads();
+            int8_t* act = (int8_t*)(smem + p.sm_act[0]);
+            for (int i = tid; i < p.Fp * COLS; i += A_THREADS) {
+                const int f = i / COLS, c = i % COLS;
+                act[c * p.lda + f] = (f < p.F && c < nvalid)
+                    ? q127(__bfloat162float(p.obs[((size_t)t * p.F + f) * p.N + c0 + c])) : 0;
+            }
+        } else if ((p.N & 7) == 0) {
+            // 16 bytes a thread where the rows are 16-byte aligned.
+            for (int i = tid; i < p.Fp * (COLS / 8); i += A_THREADS) {
+                const int f = i >> 3, c = (i & 7) * 8;
+                uint4 v = make_uint4(0u, 0u, 0u, 0u);
+                if (f < p.F && c < nvalid)
+                    v = *reinterpret_cast<const uint4*>(p.obs + ((size_t)t * p.F + f) * p.N + c0 + c);
+                *reinterpret_cast<uint4*>(xs + f * LDH + c) = v;
+            }
+        } else {
+            for (int i = tid; i < p.Fp * COLS; i += A_THREADS) {
+                const int f = i / COLS, c = i % COLS;
+                xs[f * LDH + c] = (f < p.F && c < nvalid)
+                                      ? p.obs[((size_t)t * p.F + f) * p.N + c0 + c] : zero;
+            }
+        }
+        __syncthreads();
+
+        // ---- forward: h_l = bf16(act(W_l^T h_{l-1} + b_l)), on registers.
+        int boff = 0;
+        const bf16* below = xs;
+        for (int l = 0; l < L; ++l) {
+            const Prod& pr = p.prod[l];
+            const WarpTile wt = warp_tile(pr.M);
+            bf16* h = (bf16*)(smem + p.sm_h[l]);
+            if constexpr (MODE == CHAIN_INT8FWD) {
+                // h_f = tanh(float(Wq_l^T h_q) * sw_l/127 + b_l): bf16(h_f) for
+                // the backward, q127(h_f) to the other act tile.
+                int acc8[8][4];
+                product<NST, KS>(p, pr, ring, q, q_end, smem + p.sm_act[l & 1], acc8, wt);
+                int8_t* out = (int8_t*)(smem + p.sm_act[(l + 1) & 1]);
+                const float scale = __fmul_rn(p.sw[l], S_IN);
+                if (wt.active) {
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) {
+                        if (j >= wt.nb) continue;
+#pragma unroll
+                        for (int hh = 0; hh < 2; ++hh) {
+                            const int r = wt.m0 + g + 8 * hh, c = wt.n0 + j * 8 + 2 * tg;
+                            const float v0 = tanhf(dequant_add(acc8[j][2 * hh], scale, bias[boff + r]));
+                            const float v1 = tanhf(dequant_add(acc8[j][2 * hh + 1], scale, bias[boff + r]));
+                            out[c * p.lda + r] = q127(v0);
+                            out[(c + 1) * p.lda + r] = q127(v1);
+                            *reinterpret_cast<__nv_bfloat162*>(h + r * LDH + c) =
+                                __floats2bfloat162_rn(v0, v1);
+                        }
+                    }
+                }
+            } else {
+                product<NST, KS>(p, pr, ring, q, q_end, below, acc, wt);
+                if (wt.active) {
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) {
+                        if (j >= wt.nb) continue;
+#pragma unroll
+                        for (int hh = 0; hh < 2; ++hh) {
+                            const int r = wt.m0 + g + 8 * hh, c = wt.n0 + j * 8 + 2 * tg;
+                            float v0 = __fadd_rn(acc[j][2 * hh], bias[boff + r]);
+                            float v1 = __fadd_rn(acc[j][2 * hh + 1], bias[boff + r]);
+                            v0 = p.relu ? fmaxf(v0, 0.0f) : tanhf(v0);
+                            v1 = p.relu ? fmaxf(v1, 0.0f) : tanhf(v1);
+                            *reinterpret_cast<__nv_bfloat162*>(h + r * LDH + c) =
+                                __floats2bfloat162_rn(v0, v1);
+                            if (keep)
+                                __stcg(hk + (l * 16 + j * 2 + hh) * (32 * A_WARPS),
+                                       make_float2(v0, v1));
+                        }
+                    }
+                }
+            }
+            boff += pr.M;
+            below = h;
+        }
+        // ---- the merged head, before its bias, to the f32 block z.
+        {
+            const Prod& pr = p.prod[L];
+            const WarpTile wt = warp_tile(HR);
+            if constexpr (MODE == CHAIN_INT8FWD) {
+                int acc8[8][4];
+                product<NST, KS>(p, pr, ring, q, q_end, smem + p.sm_act[L & 1], acc8, wt);
+                const float scale = __fmul_rn(p.sw[L], S_IN);
+                if (wt.active) {
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) {
+                        if (j >= wt.nb) continue;
+#pragma unroll
+                        for (int hh = 0; hh < 2; ++hh) {
+                            const int r = wt.m0 + g + 8 * hh, c = wt.n0 + j * 8 + 2 * tg;
+                            *reinterpret_cast<float2*>(z + r * LDZ + c) =
+                                make_float2(__fmul_rn((float)acc8[j][2 * hh], scale),
+                                            __fmul_rn((float)acc8[j][2 * hh + 1], scale));
+                        }
+                    }
+                }
+            } else {
+                product<NST, KS>(p, pr, ring, q, q_end, below, acc, wt);
+                if (wt.active) {
+#pragma unroll
+                    for (int j = 0; j < 8; ++j) {
+                        if (j >= wt.nb) continue;
+#pragma unroll
+                        for (int hh = 0; hh < 2; ++hh) {
+                            const int r = wt.m0 + g + 8 * hh, c = wt.n0 + j * 8 + 2 * tg;
+                            *reinterpret_cast<float2*>(z + r * LDZ + c) =
+                                make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+                        }
+                    }
+                }
+            }
+        }
+        __syncthreads();
+
+        // ---- loss and dheads, one thread a column; the other threads copy
+        // the bf16 activations (and K4's x^T) to the workspace meanwhile.
+        if (tid < COLS) {
+            const int c = tid;
+            float dcol[HR];
+            LossTerms lt = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+            for (int r = 0; r < HR; ++r) dcol[r] = 0.0f;
+            if (c < nvalid) {
+                const size_t gi = (size_t)t * p.N + c0 + c;
+                lt = ppo_column(z + c, LDZ, bias + boff, A, vrow, p.action[gi], p.logp_old[gi],
+                                p.adv[gi], p.value_old[gi], p.target[gi], p.clip, p.neg_inv_m,
+                                p.ent_scale, p.val_scale, dcol, dcol + vrow);
+            }
+            closs[0 * COLS + c] = lt.pol;
+            closs[1 * COLS + c] = lt.val;
+            closs[2 * COLS + c] = lt.ent;
+            closs[3 * COLS + c] = lt.kl;
+            // Each thread reads and writes its own column of z only.
+#pragma unroll
+            for (int r = 0; r < HR; ++r) {
+                z[r * LDZ + c] = dcol[r];
+                dhb[r * LDH + c] = __float2bfloat16(dcol[r]);
+            }
+        } else {
+            if (MODE == CHAIN_K4)
+                copy_out(xs, p.Fp, p.ws + p.off_x + wc0, p.ws_cols, tid - COLS, A_THREADS - COLS);
+            for (int l = 0; l < L; ++l)
+                copy_out((const bf16*)(smem + p.sm_h[l]), p.hidden[l],
+                         p.ws + p.off_h[l] + wc0, p.ws_cols, tid - COLS, A_THREADS - COLS);
+        }
+        __syncthreads();
+        row_sums<COLS>(z, LDZ, HR, bgrad + boff);
+        row_sums<COLS>(closs, COLS, 4, lacc);
+
+        // ---- backward: dh_l = W_{l+1} . bf16(dpre_{l+1}) (the head: Wpv .
+        // bf16(dheads)), then dpre_l = dh_l * act'(h_l) on registers: its f32
+        // row sums are the bias grads, bf16(dpre_l) replaces h_l.
+        for (int i = L + 1, l = L - 1; l >= 0; ++i, --l) {
+            const Prod& pr = p.prod[i];
+            const bf16* right = i == L + 1 ? dhb : (const bf16*)(smem + p.sm_h[l + 1]);
+            const WarpTile wt = warp_tile(pr.M);
+            product<NST, KS>(p, pr, ring, q, q_end, right, acc, wt);
+            boff -= pr.M;
+            bf16* h = (bf16*)(smem + p.sm_h[l]);
+            if (wt.active) {
+                float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    if (j >= wt.nb) continue;
+#pragma unroll
+                    for (int hh = 0; hh < 2; ++hh) {
+                        const int r = wt.m0 + g + 8 * hh, c = wt.n0 + j * 8 + 2 * tg;
+                        __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(h + r * LDH + c);
+                        const float2 hf = keep ? __ldcg(hk + (l * 16 + j * 2 + hh) * (32 * A_WARPS))
+                                               : __bfloat1622float2(*hp);
+                        const float da0 = p.relu ? (hf.x > 0.0f ? 1.0f : 0.0f)
+                                                 : __fsub_rn(1.0f, __fmul_rn(hf.x, hf.x));
+                        const float da1 = p.relu ? (hf.y > 0.0f ? 1.0f : 0.0f)
+                                                 : __fsub_rn(1.0f, __fmul_rn(hf.y, hf.y));
+                        const float d0 = __fmul_rn(acc[j][2 * hh], da0);
+                        const float d1 = __fmul_rn(acc[j][2 * hh + 1], da1);
+                        rs[hh] += d0;
+                        rs[hh] += d1;
+                        *hp = __floats2bfloat162_rn(d0, d1);
+                    }
+                }
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh) {
+                    rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 1);
+                    rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 2);
+                }
+                if (tg == 0) {
+                    rsum[wt.ng * pr.M + wt.m0 + g] = rs[0];
+                    rsum[wt.ng * pr.M + wt.m0 + g + 8] = rs[1];
+                }
+            }
+            __syncthreads();
+            if (tid < pr.M) {
+                float s = bgrad[boff + tid];
+                for (int k = 0; k < wt.nwg; ++k) s += rsum[k * pr.M + tid];
+                bgrad[boff + tid] = s;
+            }
+        }
+
+        // ---- dheads and dpre_l to the workspace.
+        // The dheads rows in K1's layout: the policy rows, then the value.
+        for (int i = tid; i < HEAD_PAD * (COLS / 8); i += A_THREADS) {
+            const int r = i >> 3, x = i & 7, src = MODE == CHAIN_K4 && r == A ? VALUE_ROW : r;
+            *reinterpret_cast<uint4*>(p.ws + p.off_dh + wc0 + r * p.ws_cols + x * 8) =
+                *reinterpret_cast<const uint4*>(dhb + src * LDH + x * 8);
+        }
+        for (int l = 0; l < L; ++l)
+            copy_out((const bf16*)(smem + p.sm_h[l]), p.hidden[l], p.ws + p.off_dp[l] + wc0,
+                     p.ws_cols, tid, A_THREADS);
+    }
+    if (tid >= 32 * A_WARPS) cp_wait<0>();
+    __syncthreads();
+    float* part = p.partial + (size_t)blockIdx.x * p.stride;
+    for (int i = tid; i < p.bias_total; i += A_THREADS) {
+        const int r = i - hidden_total;
+        const float v = bgrad[MODE == CHAIN_K4 && r == A ? hidden_total + VALUE_ROW : i];
+        part[i] = p.first ? v : __fadd_rn(part[i], v);
+    }
+    if (tid < 4)
+        part[p.bias_total + tid] =
+            p.first ? lacc[tid] : __fadd_rn(part[p.bias_total + tid], lacc[tid]);
+}
+
+// ------------------------------------------------- kernel A, the host --
+// Kernel A's shared memory and the ring's plan: the deepest slices that fit
+// three stages, else two stages of 32.  The products (pa.prod[0..np)) and
+// pa's widths are set; this sets the sm_* offsets, the slices and the stage
+// size, and returns the kernel (nullptr if nothing fits) and its bytes.
+typedef void (*ChainKernel)(const ParamsA);
+
+template <int MODE>
+int plan_chain(ParamsA& pa, int np, ChainKernel* kernel) {
+    constexpr int HR = MODE == CHAIN_K4 ? HEAD_SPLIT : HEAD_PAD;
+    const int L = pa.L;
+    int sm = 0;
+    auto take = [&](int bytes) {
+        const int at = sm;
+        sm = align128(sm + bytes);
+        return at;
+    };
+    pa.sm_x = MODE == CHAIN_INT8FWD ? 0 : take(pa.Fp * LDH * 2);
+    for (int l = 0; l < L; ++l) pa.sm_h[l] = take(pa.hidden[l] * LDH * 2);
+    const int dh_bytes = align128(HR * LDH * 2), z_bytes = HR * LDZ * 4;
+    if (MODE == CHAIN_INT8FWD) {
+        pa.sm_act[0] = take(COLS * pa.lda);
+        pa.sm_act[1] = take(COLS * pa.lda);
+    }
+    if (MODE == CHAIN_INT8FWD && dh_bytes + z_bytes <= COLS * pa.lda) {
+        // dheads and z live after the forward: in the act tile the head does
+        // not read.
+        pa.sm_dh = pa.sm_act[(L + 1) & 1];
+        pa.sm_z = pa.sm_dh + dh_bytes;
+    } else {
+        pa.sm_dh = take(dh_bytes);
+        pa.sm_z = take(z_bytes);
+    }
+    pa.sm_loss = take((4 * COLS + 4) * 4);
+    pa.sm_bias = take((pa.bias_total - HEAD_PAD + HR) * 4);
+    pa.sm_bgrad = take((pa.bias_total - HEAD_PAD + HR) * 4);
+    pa.sm_rsum = take(256 * 4);
+    pa.sm_ring = sm;
+    const struct { int nst, ks; ChainKernel kernel; } plans[] = {
+        {3, 64, chain_kernel<MODE, 3, 64>}, {3, 32, chain_kernel<MODE, 3, 32>},
+        {2, 32, chain_kernel<MODE, 2, 32>}};
+    for (const auto& plan : plans) {
+        int stage_bytes = 0;
+        for (int i = 0; i < np; ++i) {
+            const Prod& pr = pa.prod[i];
+            stage_bytes = max(stage_bytes, pr.kind == W_FWD ? plan.ks * (pr.M + 8) * 2
+                                           : pr.kind == W_DH ? pr.M * (plan.ks + 8) * 2
+                                                             : pr.M * (2 * plan.ks + 16));
+        }
+        stage_bytes = align128(stage_bytes);
+        if (sm + plan.nst * stage_bytes > SMEM_LIMIT) continue;
+        int slice = 0;
+        for (int i = 0; i < np; ++i) {
+            Prod& pr = pa.prod[i];
+            const int depth = pr.kind == W_FWD8 ? 2 * plan.ks : plan.ks;
+            pr.slice0 = slice;
+            pr.slices = (pr.K + depth - 1) / depth;
+            slice += pr.slices;
+        }
+        pa.slices_per_tile = slice;
+        pa.stage_elems = stage_bytes / 2;
+        *kernel = plan.kernel;
+        return sm + plan.nst * stage_bytes;
+    }
+    *kernel = nullptr;
+    return 0;
 }
 
 // ----------------------------------------------------------- kernel B --
@@ -211,4 +873,36 @@ __global__ void __launch_bounds__(B_THREADS) dw_kernel(const __grid_constant__ P
             }
         }
     }
+}
+
+// Kernel B's products for a chain's workspace: dW_l = below_l .
+// bf16(dpre_l)^T (below_0 the observations from obs, or, with row_x >= 0,
+// x^T from the workspace) and dWpv = bf16(h_top) . bf16(dheads)^T, every
+// dW in fused_update.cu's order (n_w floats).  Returns false if the tiles
+// do not fit.
+inline bool plan_dw(ParamsB& pb, bf16* ws, long long ws_cols, const int* H, int L, int F, int Fp,
+                    long long row_x, const long long* row_h, long long row_dh,
+                    const long long* row_dp) {
+    pb.ws_cols = ws_cols;
+    int nt = 0, off = 0;
+    for (int l = 0; l <= L; ++l) {
+        ProdB& pr = pb.prod[l];
+        const bool head = l == L;
+        pr.from_obs = l == 0 && row_x < 0;
+        pr.a = l == 0 ? (row_x < 0 ? nullptr : ws + row_x * ws_cols) : ws + row_h[l - 1] * ws_cols;
+        pr.a_rows = l == 0 ? (row_x < 0 ? F : Fp) : H[l - 1];
+        pr.M = l == 0 ? Fp : H[l - 1];
+        pr.b = ws + (head ? row_dh : row_dp[l]) * ws_cols;
+        pr.N = head ? HEAD_PAD : H[l];
+        pr.off = off;
+        off += pr.M * pr.N;
+        for (int m0 = 0; m0 < pr.M; m0 += BT)
+            for (int n0 = 0; n0 < pr.N; n0 += BT) {
+                if (nt == MAX_TILES) return false;
+                pb.tile[nt++] = {l, m0, n0};
+            }
+    }
+    pb.ntiles = nt;
+    pb.stride = off;
+    return true;
 }

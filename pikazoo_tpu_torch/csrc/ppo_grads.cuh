@@ -1,8 +1,9 @@
-// Device code shared by the fused clipped-PPO gradient kernels: K1
-// (fused_update.cu, feature-major, merged head) and K4 (fused_update_rm.cu,
-// row-major, split heads).  Both hold a tile of columns (K1) or rows (K4) in
-// shared memory with the batch on the fast axis, so the products, the
-// bias-gradient row sums and the per-column loss are the same code.
+// Device code shared by the clipped-PPO gradient kernels: K1's one-kernel
+// design (fused_update.cu), the split design (k1_split.cuh: K1's bf16,
+// int8fwd and int8 modes and K4) and the probe kernels.  Each holds a tile of
+// columns (K4: of rows) in shared memory with the batch on the fast axis, so
+// the bias-gradient row sums, the per-column loss and the products of the
+// one-kernel design are the same code.
 
 #pragma once
 

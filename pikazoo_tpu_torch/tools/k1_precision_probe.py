@@ -6,7 +6,9 @@ products puts it there.  Needs a card and nvcc:
 The bf16 mode runs ``csrc/fused_update_bf16.cu`` (its two kernels) and the
 int8 mode ``csrc/fused_update_int8.cu`` (its split kernels), which the
 variants do not touch: each one's row names its source and shows it beside
-the plain version once.  The other modes run ``csrc/fused_update.cu``, and the
+the plain version once.  The int8fwd mode (the bf16 mode's kernels with an
+int8 forward) is not probed.  The modes with the bf16 backward chain run
+``csrc/fused_update.cu``, and the
 probe builds variants of it into ``build/probe/`` by
 substituting the product calls, each with hooks that copy one tile per block
 of the kernel's intermediates to device memory:
@@ -87,7 +89,9 @@ VARIANTS = {  # name: (forward, hidden dh, the bf16 chain's head dh)
 }
 # The modes with sources of their own, which the variants do not touch.
 SPLIT = {"none": "fused_update_bf16.cu", "int8": "fused_update_int8.cu"}
-MODES = {"none": {}, "bwd_bf16": dict(bwd_bf16=True), "int8fwd": dict(quant="int8fwd"),
+# int8fwd alone runs fused_update_bf16.cu's kernels with an int8 forward,
+# which the variants do not reach; it is not probed.
+MODES = {"none": {}, "bwd_bf16": dict(bwd_bf16=True),
          "int8fwd+bwd_bf16": dict(quant="int8fwd", bwd_bf16=True),
          "int8": dict(quant="int8")}
 

@@ -76,10 +76,19 @@ VARIANTS = {
 }
 
 
+def source() -> str:
+    """``csrc/fused_update_bf16.cu`` with ``k1_split.cuh``, where kernel A
+    lives, inlined: the text the variants substitute in."""
+    src = (_build.CSRC_DIR / "fused_update_bf16.cu").read_text()
+    header = (_build.CSRC_DIR / "k1_split.cuh").read_text().replace("#pragma once\n", "")
+    return src.replace('#include "k1_split.cuh"\n', header, 1)
+
+
 def substitute(src: str, pairs) -> str:
     for old, new in pairs:
         if src.count(old) != 1:
-            raise RuntimeError(f"probe anchor not found once in fused_update_bf16.cu: {old!r}")
+            raise RuntimeError(f"probe anchor not found once in fused_update_bf16.cu with "
+                               f"k1_split.cuh: {old!r}")
         src = src.replace(old, new)
     return src
 
@@ -125,7 +134,7 @@ def run() -> int:
 
     card = chip_smoke.card_line()
     OUT.mkdir(parents=True, exist_ok=True)
-    src = (_build.CSRC_DIR / "fused_update_bf16.cu").read_text()
+    src = source()
     builds = {"cycles": substitute(src, CYCLES),
               **{k: substitute(src, v) for k, v in VARIANTS.items()}}
     fu._library_bf16()  # the real library first: the variants take its argtypes

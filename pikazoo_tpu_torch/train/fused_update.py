@@ -8,10 +8,10 @@ of one minibatch.  K1 takes the minibatch in its ``(T, 2B)`` shape with the
 observations feature-major ``(T, F, 2B)`` bf16, as the rollout stores them;
 K4 takes it flattened to rows, observations ``(M, F)`` bf16.
 
-A CUDA minibatch runs hand-written Hopper kernels (for K1 ``csrc/fused_update_bf16.cu``
-in the bf16 mode, ``csrc/fused_update_int8.cu`` in the int8 mode and
-``csrc/fused_update.cu`` in the others,
-``csrc/fused_update_rm.cu`` for K4, built by
+A CUDA minibatch runs hand-written Hopper kernels (for K1
+``csrc/fused_update_bf16.cu`` in the bf16 and int8fwd modes,
+``csrc/fused_update_int8.cu`` in the int8 mode and ``csrc/fused_update.cu``
+with the bf16 backward chain; ``csrc/k4_split.cu`` for K4; built by
 ``pikazoo_tpu_torch._build`` at first use); a CPU one runs the plain PyTorch
 version (:func:`fused_ppo_grads_fm_plain`, :func:`fused_ppo_grads_rm_plain`).
 On CUDA the kernel launches or the call raises: there is no fallback.
@@ -35,7 +35,8 @@ modes, as the JAX kernel's branches:
 - ``quant="int8fwd"``: the forward products in int8 (weights quantised per
   tensor from the f32 params, activations with the static scale 127), the
   bf16 of each f32 activation kept for the stock bf16 backward, which uses the
-  bf16 weights.
+  bf16 weights.  Without ``bwd_bf16`` it runs as the bf16 mode's two kernels,
+  kernel A with the int8 forward (``k1_chain_plain(..., quant="int8fwd")``).
 - ``quant="int8"``: the forward as ``int8fwd`` but the int8 activations are
   kept; the two head products of the backward stay bf16, the hidden chain
   quantises ``dpre`` with a dynamic max-abs scale per frame and column cell
@@ -51,6 +52,10 @@ modes, as the JAX kernel's branches:
 K4 differs from K1's bf16 mode in three places: the activation derivative is
 taken from the f32 activation, the policy and value heads are two products
 (``dh`` is their f32 sum), and rows are tiled instead of frames x columns.
+On the card it runs as K1 bf16's two kernels over chunks of rows, each chunk
+one frame of columns: its own kernel A (:func:`k4_chain`, plain version
+:func:`k4_chain_plain`) and K1's kernel B (:func:`k4_dw`, plain version
+:func:`k1_dw_plain` on the rows transposed).
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ from pikazoo_tpu_torch.train.networks import BF16, Params, dense_layers
 
 SOURCES = ("fused_update.cu",)
 SOURCES_BF16 = ("fused_update_bf16.cu",)
-SOURCES_RM = ("fused_update_rm.cu",)
+SOURCES_K4 = ("k4_split.cu",)
 SOURCES_INT8 = ("fused_update_int8.cu",)
 COLS = 64        # env columns per tile of K1 (both sources)
 DW_TILE = 128    # output rows and columns of a tile of K1 bf16's dW kernel
@@ -75,10 +80,10 @@ DW_TILE = 128    # output rows and columns of a tile of K1 bf16's dW kernel
 CHUNK_COLS = 131072
 DW_BLOCKS_PER_SM = 2  # resident blocks of K1 bf16's dW kernel (110 KB of shared memory each)
 Q_TILE_COLS = 64  # output columns of a tile of K1 int8's dW kernel (DW_TILE rows)
-ROWS_RM = 32     # rows per tile of K4 (csrc/fused_update_rm.cu)
 HEAD_PAD = 32    # K1's merged head: A+1 rows, padded
-HEAD_PAD_RM = 48  # K4's head: the policy rows padded to 32, then the value row
-VALUE_ROW_RM = 32
+HEAD_SPLIT = 48  # K4's head: the policy rows padded to 32, then the value row
+VALUE_ROW = 32
+A_COMPUTE_THREADS = 512  # threads of a chain kernel that compute (K4 keeps f32 activations for each)
 MAX_LAYERS = 4   # hidden layers the kernels take
 MAX_WIDTH = 256  # widest hidden layer the kernels take
 PLAIN_COLS = 16384  # columns (rows for K4) per chunk of the plain versions
@@ -251,14 +256,56 @@ def _dpre_chain(dh: torch.Tensor, hs, wf, activation: str):
             dh = torch.matmul(wf[l], dpre_b)
 
 
+def _forward_bf16(x, wf, bf, wpv, bpv, activation: str):
+    """The bf16 forward of a chunk of columns x (F, C): returns (hs, the
+    bf16(h_l) as f32; heads (A+1, C))."""
+    hs, h = [], x
+    for l in range(len(wf)):
+        h = _act(torch.matmul(wf[l].t(), h) + bf[l][:, None], activation).to(BF16).float()
+        hs.append(h)
+    return hs, torch.matmul(wpv.t(), h) + bpv[:, None]
+
+
+def _forward_int8fwd(x, wq, sw, bf, bpv, activation: str):
+    """The int8fwd forward of a chunk of columns x (F, C): int8 products,
+    the weight scale riding the bias add.  Returns (hs, each bf16(h_f) of
+    the f32 activation as f32, which the stock bf16 backward takes, not the
+    dequantised h_q; heads (A+1, C))."""
+    hs, h_q = [], _q127(x)
+    for l in range(len(bf)):
+        h_f = _act(torch.matmul(wq[l].t(), h_q) * (sw[l] * S_IN) + bf[l][:, None], activation)
+        h_q = _q127(h_f)
+        hs.append(h_f.to(BF16).float())
+    return hs, torch.matmul(wq[-1].t(), h_q) * (sw[-1] * S_IN) + bpv[:, None]
+
+
+def _plain_net(w, b, L: int, quant: str, activation: str):
+    """K1's weights as its plain versions take them: (the hidden kernels'
+    bf16 as f32, the hidden biases, the merged (H, A+1) head's bf16 as f32,
+    its (A+1,) bias, the forward of a chunk of columns in mode ``quant``)."""
+    wf = [x.to(BF16).float() for x in w[:L]]
+    bf = [x.float() for x in b[:L]]
+    wpv = torch.cat([w[L], w[L + 1]], dim=1).to(BF16).float()   # (H, A+1)
+    bpv = torch.cat([b[L], b[L + 1]]).float()                   # (A+1,)
+    if quant == "int8fwd":
+        wq, sw = quantize_weights(w, L)
+        forward = functools.partial(_forward_int8fwd, wq=[q.float() for q in wq], sw=sw,
+                                    bf=bf, bpv=bpv, activation=activation)
+    else:
+        forward = functools.partial(_forward_bf16, wf=wf, bf=bf, wpv=wpv, bpv=bpv,
+                                    activation=activation)
+    return wf, bf, wpv, bpv, forward
+
+
 class K1Chain(NamedTuple):
-    """What K1's bf16 mode computes before its dW products (kernel A of
-    ``csrc/fused_update_bf16.cu``): the products' operands at the function's
-    rounding points, each (rows, T, N) bf16, and the f32 sums.  ``hs[l]`` is
-    bf16(h_l), ``dheads`` bf16(dheads) (A+1 rows: the logits', then the
-    value's), ``dpres[l]`` bf16(dpre_l); ``db[l]`` and ``dbpv`` are the f32 row
-    sums of the unrounded f32 ``dpre_l`` and ``dheads``; ``sums`` the 4 loss
-    sums."""
+    """What K1's bf16 and int8fwd modes and K4 compute before their dW
+    products (kernel A of ``csrc/fused_update_bf16.cu`` and of
+    ``csrc/k4_split.cu``): the products' operands at the function's rounding
+    points, each (rows, T, N) bf16 (K4: T = 1, N = M rows), and the f32
+    sums.  ``hs[l]`` is bf16(h_l), ``dheads`` bf16(dheads) (A+1 rows: the
+    logits', then the value's), ``dpres[l]`` bf16(dpre_l); ``db[l]`` and
+    ``dbpv`` are the f32 row sums of the unrounded f32 ``dpre_l`` and
+    ``dheads``; ``sums`` the 4 loss sums."""
     hs: List[torch.Tensor]
     dheads: torch.Tensor
     dpres: List[torch.Tensor]
@@ -272,18 +319,20 @@ def k1_chain_plain(params: Params, obs: torch.Tensor, action: torch.Tensor,
                    adv_norm: torch.Tensor, target: torch.Tensor, *,
                    num_actions: int, activation: str, clip_eps: float,
                    value_coef: float, entropy_coef: float,
-                   total_rows: int = 0) -> K1Chain:
-    """The plain version of kernel A of K1's bf16 mode, on any device: the
-    forward, the loss and ``dheads``, and the backward chain down to
-    ``dpre_0``, a frame and ``PLAIN_COLS`` columns at a time."""
+                   total_rows: int = 0, quant: str = "none") -> K1Chain:
+    """The plain version of kernel A of K1's bf16 mode (``quant="none"``) or
+    int8fwd mode (``quant="int8fwd"``: the int8 forward, then the same bf16
+    backward on the bf16 weights), on any device: the forward, the loss and
+    ``dheads``, and the backward chain down to ``dpre_0``, a frame and
+    ``PLAIN_COLS`` columns at a time."""
     _, L, w, b = dense_layers(params)
+    if quant not in ("none", "int8fwd"):
+        raise ValueError(f"kernel A runs quant 'none' or 'int8fwd', not {quant!r}")
+    check_mode(quant, activation, L)
     t_mb, _, n = obs.shape
     inv_m = 1.0 / (total_rows or t_mb * n)
     A = num_actions
-    wf = [x.to(BF16).float() for x in w[:L]]
-    bf = [x.float() for x in b[:L]]
-    wpv = torch.cat([w[L], w[L + 1]], dim=1).to(BF16).float()   # (H, A+1)
-    bpv = torch.cat([b[L], b[L + 1]]).float()                   # (A+1,)
+    wf, bf, wpv, bpv, forward = _plain_net(w, b, L, quant, activation)
     loss_kw = dict(inv_m=inv_m, clip_eps=clip_eps, value_coef=value_coef,
                    entropy_coef=entropy_coef)
     new = lambda rows: torch.empty((rows, t_mb, n), dtype=BF16, device=obs.device)
@@ -296,13 +345,9 @@ def k1_chain_plain(params: Params, obs: torch.Tensor, action: torch.Tensor,
     for t in range(t_mb):
         for c0 in range(0, n, PLAIN_COLS):
             cols = slice(c0, min(n, c0 + PLAIN_COLS))
-            h = obs[t, :, cols].float()
-            hs = []
+            hs, heads = forward(obs[t, :, cols].float())        # heads (A+1, C)
             for l in range(L):
-                h = _act(torch.matmul(wf[l].t(), h) + bf[l][:, None], activation).to(BF16).float()
-                hs.append(h)
-                hs_out[l][:, t, cols] = h
-            heads = torch.matmul(wpv.t(), h) + bpv[:, None]      # (A+1, C)
+                hs_out[l][:, t, cols] = hs[l]
             chunk_sums, dlogits, dvalue = _loss_and_dheads(
                 heads[:A], heads[A], action[t, cols], logp_old[t, cols],
                 adv_norm[t, cols], value_old[t, cols], target[t, cols], **loss_kw)
@@ -341,8 +386,8 @@ def k1_dw_plain(chain: K1Chain, obs: torch.Tensor):
 
 def _plain_bf16(params: Params, obs, action, logp_old, value_old, adv_norm, target, *,
                 num_actions: int, total_rows: int, **kw):
-    """K1's bf16 mode as its two kernels compute it: the chain, then the dW
-    products, a frame at a time."""
+    """K1's bf16 or int8fwd mode (``kw["quant"]``) as its two kernels
+    compute it: the chain, then the dW products, a frame at a time."""
     names, L, _, _ = dense_layers(params)
     total_rows = total_rows or obs.shape[0] * obs.shape[2]
     total = None   # every dW, every bias grad, dWpv, dbpv, the loss sums
@@ -528,24 +573,20 @@ def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
     fits on the card at full width."""
     names, L, w, b = dense_layers(params)
     check_mode(quant, activation, L)
-    if quant == "int8" or (quant == "none" and not bwd_bf16):
-        # The modes that run as split kernels: their stages composed.
-        composed = _plain_int8 if quant == "int8" else _plain_bf16
-        return composed(params, obs, action, logp_old, value_old, adv_norm, target,
-                        num_actions=num_actions, activation=activation,
-                        clip_eps=clip_eps, value_coef=value_coef,
-                        entropy_coef=entropy_coef, total_rows=total_rows)
+    kw = dict(num_actions=num_actions, activation=activation, clip_eps=clip_eps,
+              value_coef=value_coef, entropy_coef=entropy_coef, total_rows=total_rows)
+    if quant == "int8":
+        return _plain_int8(params, obs, action, logp_old, value_old, adv_norm, target, **kw)
+    if not bwd_bf16:
+        # bf16 and int8fwd run as K1 bf16's split kernels: their stages composed.
+        return _plain_bf16(params, obs, action, logp_old, value_old, adv_norm, target,
+                           quant=quant, **kw)
+    # The bf16 backward chain (bwd_bf16), after the bf16 or the int8fwd forward.
     f32 = torch.float32
     t_mb, n = action.shape
     inv_m = 1.0 / (total_rows or t_mb * n)
     A = num_actions
-    wf = [x.to(BF16).float() for x in w[:L]]
-    bf = [x.float() for x in b[:L]]
-    wpv = torch.cat([w[L], w[L + 1]], dim=1).to(BF16).float()   # (H, A+1)
-    bpv = torch.cat([b[L], b[L + 1]]).float()                   # (A+1,)
-    if quant != "none":
-        wq, sw = quantize_weights(w, L)
-        wq = [q.float() for q in wq]                            # integer-valued
+    wf, bf, wpv, bpv, forward = _plain_net(w, b, L, quant, activation)
     loss_kw = dict(inv_m=inv_m, clip_eps=clip_eps, value_coef=value_coef,
                    entropy_coef=entropy_coef)
 
@@ -558,24 +599,7 @@ def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
         for c0 in range(0, n, PLAIN_COLS):
             cols = slice(c0, min(n, c0 + PLAIN_COLS))
             x = obs[t, :, cols].float()
-            hs = []
-            if quant != "none":
-                # int8 forward: the weight scale rides the bias add; hs holds
-                # bf16(h_f) for the stock bf16 backward.
-                h_q = _q127(x)
-                for l in range(L):
-                    pre = torch.matmul(wq[l].t(), h_q) * (sw[l] * S_IN) + bf[l][:, None]
-                    h_f = _act(pre, activation)
-                    h_q = _q127(h_f)
-                    hs.append(h_f.to(BF16).float())
-                heads = torch.matmul(wq[L].t(), h_q) * (sw[L] * S_IN) + bpv[:, None]
-            else:
-                h = x
-                for l in range(L):
-                    pre = torch.matmul(wf[l].t(), h) + bf[l][:, None]
-                    h = _act(pre, activation).to(BF16).float()
-                    hs.append(h)
-                heads = torch.matmul(wpv.t(), h) + bpv[:, None]   # (A+1, C)
+            hs, heads = forward(x)                                   # heads (A+1, C)
             chunk_sums, dlogits, dvalue = _loss_and_dheads(
                 heads[:A], heads[A], action[t, cols], logp_old[t, cols],
                 adv_norm[t, cols], value_old[t, cols], target[t, cols], **loss_kw)
@@ -585,24 +609,74 @@ def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
             dbpv += dheads.sum(dim=1)
 
             dwpv += torch.matmul(hs[-1], dheads_b.t())
-            if bwd_bf16:
-                # The hidden chain in bf16 arithmetic, op by op.
-                dh_b = torch.matmul(wpv, dheads_b).to(BF16)
-                for l in range(L - 1, -1, -1):
-                    dpre_b = dh_b * _dact(hs[l].to(BF16), activation)
-                    below = hs[l - 1] if l > 0 else x
-                    dw[l] += torch.matmul(below, dpre_b.float().t())
-                    db[l] += dpre_b.float().sum(dim=1)
-                    if l > 0:
-                        dh_b = torch.matmul(wf[l], dpre_b.float()).to(BF16)
-                continue
-            for l, dpre, dpre_b in _dpre_chain(torch.matmul(wpv, dheads_b), hs, wf,
-                                               activation):
+            # The hidden chain in bf16 arithmetic, op by op.
+            dh_b = torch.matmul(wpv, dheads_b).to(BF16)
+            for l in range(L - 1, -1, -1):
+                dpre_b = dh_b * _dact(hs[l].to(BF16), activation)
                 below = hs[l - 1] if l > 0 else x
-                dw[l] += torch.matmul(below, dpre_b.t())
-                db[l] += dpre.sum(dim=1)
+                dw[l] += torch.matmul(below, dpre_b.float().t())
+                db[l] += dpre_b.float().sum(dim=1)
+                if l > 0:
+                    dh_b = torch.matmul(wf[l], dpre_b.float()).to(BF16)
     grads = _merged_grads(names, dw, db, dwpv, dbpv, A)
     return grads, _loss_vector(sums, inv_m, value_coef, entropy_coef)
+
+
+def k4_chain_plain(params: Params, obs: torch.Tensor, action: torch.Tensor,
+                   logp_old: torch.Tensor, value_old: torch.Tensor,
+                   adv_norm: torch.Tensor, target: torch.Tensor, *,
+                   num_actions: int, activation: str, clip_eps: float,
+                   value_coef: float, entropy_coef: float,
+                   total_rows: int = 0) -> K1Chain:
+    """The plain version of K4's kernel A (``csrc/k4_split.cu``), on any
+    device, transcribed from ``_kernel``: the rows (obs (M, F)) as one frame
+    of M columns, the forward, the loss and ``dheads``, the backward chain
+    down to ``dpre_0``, ``PLAIN_COLS`` rows at a time.  It differs from
+    :func:`k1_chain_plain` where K4 does: the derivative takes the f32
+    activation, and the backward's ``dh`` is the policy head's product plus
+    the value head's, summed in f32.  Returns a :class:`K1Chain` of (rows,
+    1, M) operands, which :func:`k1_dw_plain` takes with ``obs.t()[None]``."""
+    _, L, w, b = dense_layers(params)
+    m_rows = obs.shape[0]
+    inv_m = 1.0 / (total_rows or m_rows)
+    A = num_actions
+    wf = [x.to(BF16).float() for x in w[:L]]
+    bf = [x.float() for x in b[:L]]
+    wp, wv = w[L].to(BF16).float(), w[L + 1].to(BF16).float()
+    bpv = torch.cat([b[L], b[L + 1]]).float()                   # (A+1,)
+    loss_kw = dict(inv_m=inv_m, clip_eps=clip_eps, value_coef=value_coef,
+                   entropy_coef=entropy_coef)
+    new = lambda rows: torch.empty((rows, 1, m_rows), dtype=BF16, device=obs.device)
+    hs_out = [new(x.shape[1]) for x in wf]
+    dpres_out = [new(x.shape[1]) for x in wf]
+    dheads_out = new(A + 1)
+    db = [torch.zeros_like(x) for x in bf]
+    dbpv = torch.zeros_like(bpv)
+    sums = torch.zeros(4, dtype=torch.float32, device=obs.device)
+    for r0 in range(0, m_rows, PLAIN_COLS):
+        rows = slice(r0, min(m_rows, r0 + PLAIN_COLS))
+        h_b = obs[rows].float().t()                             # (F, R)
+        hs = []                                                 # the f32 activations
+        for l in range(L):
+            h = _act(torch.matmul(wf[l].t(), h_b) + bf[l][:, None], activation)
+            h_b = h.to(BF16).float()
+            hs.append(h)
+            hs_out[l][:, 0, rows] = h_b
+        logits = torch.matmul(wp.t(), h_b) + bpv[:A, None]      # (A, R)
+        value = torch.matmul(wv.t(), h_b)[0] + bpv[A]           # (R,)
+        chunk_sums, dlogits, dvalue = _loss_and_dheads(
+            logits, value, action[rows], logp_old[rows], adv_norm[rows], value_old[rows],
+            target[rows], **loss_kw)
+        sums += chunk_sums
+        dheads = torch.cat([dlogits, dvalue[None]])              # (A+1, R)
+        dheads_b = dheads.to(BF16).float()
+        dheads_out[:, 0, rows] = dheads_b
+        dbpv += dheads.sum(dim=1)
+        dh = torch.matmul(wp, dheads_b[:A]) + torch.matmul(wv, dheads_b[A:])
+        for l, dpre, dpre_b in _dpre_chain(dh, hs, wf, activation):
+            dpres_out[l][:, 0, rows] = dpre_b
+            db[l] += dpre.sum(dim=1)
+    return K1Chain(hs_out, dheads_out, dpres_out, db, dbpv, sums)
 
 
 def fused_ppo_grads_rm_plain(params: Params, obs: torch.Tensor,
@@ -614,56 +688,25 @@ def fused_ppo_grads_rm_plain(params: Params, obs: torch.Tensor,
                              total_rows: int = 0
                              ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """The plain PyTorch version of :func:`fused_ppo_grads` (K4), on any
-    device, transcribed from ``_kernel``: the f32 activation feeds the
-    derivative, the policy and value heads are two products each way.  It
-    walks ``PLAIN_COLS`` rows at a time."""
-    names, L, w, b = dense_layers(params)
-    f32 = torch.float32
+    device, as its two kernels compute it: :func:`k4_chain_plain`, then
+    :func:`k1_dw_plain` on the rows as one frame, ``CHUNK_COLS`` rows at a
+    time."""
+    names, L, _, _ = dense_layers(params)
     m_rows = obs.shape[0]
-    inv_m = 1.0 / (total_rows or m_rows)
-    wf = [x.to(BF16).float() for x in w]
-    bf = [x.float() for x in b]
-    wp, wv = wf[L], wf[L + 1]
-    loss_kw = dict(inv_m=inv_m, clip_eps=clip_eps, value_coef=value_coef,
-                   entropy_coef=entropy_coef)
-
-    dw = [torch.zeros_like(x) for x in wf]
-    db = [torch.zeros_like(x) for x in bf]
-    sums = torch.zeros(4, dtype=f32, device=obs.device)
-    for r0 in range(0, m_rows, PLAIN_COLS):
-        rows = slice(r0, min(m_rows, r0 + PLAIN_COLS))
-        x = obs[rows].float()                                   # (R, F)
-        hs, hs_b = [], []
-        h_b = x
-        for l in range(L):
-            h = _act(torch.matmul(h_b, wf[l]) + bf[l], activation)
-            h_b = h.to(BF16).float()
-            hs.append(h)
-            hs_b.append(h_b)
-        logits = torch.matmul(h_b, wp) + bf[L]                  # (R, A)
-        value = (torch.matmul(h_b, wv) + bf[L + 1])[:, 0]       # (R,)
-        chunk_sums, dlogits, dvalue = _loss_and_dheads(
-            logits.t(), value, action[rows], logp_old[rows], adv_norm[rows],
-            value_old[rows], target[rows], **loss_kw)
-        sums += chunk_sums
-        dlogits = dlogits.t()                                   # (R, A)
-        dlogits_b = dlogits.to(BF16).float()
-        dvalue_b = dvalue.to(BF16).float()[:, None]             # (R, 1)
-        dw[L] += torch.matmul(hs_b[-1].t(), dlogits_b)
-        db[L] += dlogits.sum(dim=0)
-        dw[L + 1] += torch.matmul(hs_b[-1].t(), dvalue_b)
-        db[L + 1] += dvalue.sum()[None]
-        dh = torch.matmul(dlogits_b, wp.t()) + torch.matmul(dvalue_b, wv.t())
-        for l in range(L - 1, -1, -1):
-            dpre = dh * _dact(hs[l], activation)
-            dpre_b = dpre.to(BF16).float()
-            below = hs_b[l - 1] if l > 0 else x
-            dw[l] += torch.matmul(below.t(), dpre_b)
-            db[l] += dpre.sum(dim=0)
-            if l > 0:
-                dh = torch.matmul(dpre_b, wf[l].t())
-    grads = _grads_dict(names, dw[:L], db[:L], dw[L], db[L], dw[L + 1], db[L + 1])
-    return grads, _loss_vector(sums, inv_m, value_coef, entropy_coef)
+    total_rows = total_rows or m_rows
+    total = None   # every dW, every bias grad, dWpv, dbpv, the loss sums
+    for r0 in range(0, m_rows, CHUNK_COLS):
+        chunk = [x[r0:r0 + CHUNK_COLS] for x in (obs, action, logp_old, value_old, adv_norm,
+                                                 target)]
+        chain = k4_chain_plain(params, *chunk, num_actions=num_actions, activation=activation,
+                               clip_eps=clip_eps, value_coef=value_coef,
+                               entropy_coef=entropy_coef, total_rows=total_rows)
+        dw, dwpv = k1_dw_plain(chain, chunk[0].t()[None])
+        parts = [*dw, *chain.db, dwpv, chain.dbpv, chain.sums]
+        total = parts if total is None else [a + b for a, b in zip(total, parts)]
+    dw, db, (dwpv, dbpv, sums) = total[:L], total[L:2 * L], total[2 * L:]
+    grads = _merged_grads(names, dw, db, dwpv, dbpv, num_actions)
+    return grads, _loss_vector(sums, 1.0 / total_rows, value_coef, entropy_coef)
 
 
 # ------------------------------------------------------------------ kernels --
@@ -698,18 +741,24 @@ def _library_bf16() -> ctypes.CDLL:
                    + [ctypes.c_float] * 4           # clip, -inv_m, ent, val scales
                    + [_PTR, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]  # workspace
                    + [_PTR, ctypes.c_int, _PTR, ctypes.c_int]  # partials of A and B
-                   + [_PTR, _PTR, ctypes.c_int])    # out, stream, stages
+                   + [_PTR, _PTR, ctypes.c_int]     # out, stream, stages
+                   + [_PTR, _PTR])                  # int8fwd: int8 weights, scales
     fn.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=1)
-def _library_rm() -> ctypes.CDLL:
-    lib = _build.load("fused_update_rm", SOURCES_RM)
-    fn = lib.fused_ppo_grads_rm_launch
-    fn.argtypes = ([_PTR] * 6 + [_PTR] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 4 + [_PTR, ctypes.c_int, ctypes.c_int]
-                   + [_PTR, _PTR])
+def _library_k4() -> ctypes.CDLL:
+    lib = _build.load("k4_split", SOURCES_K4)
+    fn = lib.k4_launch
+    fn.argtypes = ([_PTR] * 6                       # obs and the 5 scalars
+                   + [_PTR] * 2 + [_PTR]            # weights, biases, hidden widths
+                   + [ctypes.c_int] * 5             # L, F, Fp, A, relu
+                   + [ctypes.c_longlong]            # M
+                   + [ctypes.c_float] * 4           # clip, -inv_m, ent, val scales
+                   + [_PTR, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]  # workspace
+                   + [_PTR, ctypes.c_int, _PTR, ctypes.c_int]  # partials of A and B
+                   + [_PTR, _PTR, _PTR, ctypes.c_int])  # hkeep, out, stream, stages
     fn.restype = ctypes.c_int
     return lib
 
@@ -763,12 +812,13 @@ def _check_net(w, L: int, A: int, head_pad: int, activation: str) -> List[int]:
     return hidden
 
 
-def _partials(device, widths, head_pad: int, tiles: int, shape):
-    """Per-block partials and the reduced output: every dW, then every bias
-    grad, then the 4 loss sums, a block's row padded to 64 floats."""
+def _partials(device, widths, tiles: int, shape):
+    """Per-block partials and the reduced output of ``csrc/fused_update.cu``:
+    every dW, then every bias grad, then the 4 loss sums, a block's row
+    padded to 64 floats."""
     h_top = widths[-1]
-    n_w = sum(i * o for i, o in zip(widths[:-1], widths[1:])) + h_top * head_pad
-    n_b = sum(widths[1:]) + head_pad
+    n_w = sum(i * o for i, o in zip(widths[:-1], widths[1:])) + h_top * HEAD_PAD
+    n_b = sum(widths[1:]) + HEAD_PAD
     stride = -(-(n_w + n_b + 4) // 64) * 64
     if tiles == 0:
         raise ValueError(f"empty minibatch: obs is {tuple(shape)}")
@@ -823,14 +873,14 @@ STAGE_REQUANT = 4  # K1 int8's kernel S, once a hidden layer
 INT8_KERNELS = ("int8_chain", "int8_requant", "int8_dw", "int8_head_dw")
 
 
-def _ws_rows(hidden):
+def _ws_rows(hidden, x_rows: int = 0):
     """Row offsets of K1 bf16's workspace: bf16(h_l), then bf16(dheads)
-    (HEAD_PAD rows), then bf16(dpre_l).  Returns (h rows, dheads row, dpre
-    rows, total rows)."""
-    row_h = [sum(hidden[:l]) for l in range(len(hidden))]
-    row_dh = sum(hidden)
-    row_dp = [row_dh + HEAD_PAD + r for r in row_h]
-    return row_h, row_dh, row_dp, 2 * sum(hidden) + HEAD_PAD
+    (HEAD_PAD rows), then bf16(dpre_l), after ``x_rows`` rows of x^T (K4's
+    workspace).  Returns (h rows, dheads row, dpre rows, total rows)."""
+    row_h = [x_rows + sum(hidden[:l]) for l in range(len(hidden))]
+    row_dh = x_rows + sum(hidden)
+    row_dp = [row_dh + HEAD_PAD + r - x_rows for r in row_h]
+    return row_h, row_dh, row_dp, x_rows + 2 * sum(hidden) + HEAD_PAD
 
 
 def _npad(n: int) -> int:
@@ -841,9 +891,10 @@ def _bf16_call(obs, hidden, num_actions: int, ws, chunk: int, stages: int, net=N
     """Launch K1 bf16's kernels over ``obs`` (T, F, N) through the workspace
     ``ws`` (rows, chunk * Npad) bf16, ``chunk`` frames at a time: kernel A,
     kernel B or both (``stages``).  ``net``, kernel A's inputs: (weights,
-    biases, int32 action, the 4 per-column scalars, relu, clip, -1/M, entropy
-    and value scales).  Returns ``out``: every dW, then the bias grads and
-    the 4 loss sums, as :func:`_unpack` reads them."""
+    biases, int32 action, the 4 per-column scalars, relu, the int8fwd
+    forward's (int8 weights, scales) or None, clip, -1/M, entropy and value
+    scales).  Returns ``out``: every dW, then the bias grads and the 4 loss
+    sums, as :func:`_unpack` reads them."""
     t_mb, f, n = obs.shape
     device = obs.device
     widths = [_round16(f), *hidden]
@@ -860,13 +911,17 @@ def _bf16_call(obs, hidden, num_actions: int, ws, chunk: int, stages: int, net=N
     out = torch.empty(n_w + n_b + 4, dtype=torch.float32, device=device)
     obs = obs.contiguous()
     dims = (ctypes.c_int * len(hidden))(*hidden)
+    q_ptrs = sw = None
     if net is None:
         w_ptrs = b_ptrs = None
         ptrs, relu, scales = [None] * 5, 0, (0.0,) * 4
     else:
-        weights, biases, action, scalars, relu, *scales = net
+        weights, biases, action, scalars, relu, int8fwd, *scales = net
         w_ptrs, _w = _ptr_array(weights)
         b_ptrs, _b = _ptr_array(biases)
+        if int8fwd is not None:
+            q_ptrs, _q = _ptr_array(int8fwd[0])
+            sw = int8fwd[1].data_ptr()
         ptrs = [action.data_ptr(), *[x.data_ptr() for x in scalars]]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -874,27 +929,41 @@ def _bf16_call(obs, hidden, num_actions: int, ws, chunk: int, stages: int, net=N
             obs.data_ptr(), *ptrs, w_ptrs, b_ptrs, ctypes.cast(dims, _PTR), len(hidden), f,
             widths[0], num_actions, relu, t_mb, n, *scales, ws.data_ptr(), ws.shape[0],
             ws.shape[1], chunk, partial_a.data_ptr(), blocks_a, partial_b.data_ptr(), ranges,
-            out.data_ptr(), stream, stages)
+            out.data_ptr(), stream, stages, q_ptrs, sw)
     if err != 0:
         raise RuntimeError(f"K1 bf16 kernel launch failed: CUDA error {err}")
+    _count(fused_ppo_grads_fm, stages, -(-t_mb // chunk), "bf16")
     return out
+
+
+def _count(fn, stages: int, chunks: int, prefix: str) -> None:
+    """Add a launch's kernels to ``fn.launches_by_kernel``: kernel A
+    (``<prefix>_chain``) and kernel B (``<prefix>_dw``) once a chunk each."""
+    for bit, name in ((STAGE_CHAIN, "chain"), (STAGE_DW, "dw")):
+        if stages & bit:
+            fn.launches_by_kernel[f"{prefix}_{name}"] += chunks
 
 
 def _run_bf16(params: Params, obs, action, scalars, *, num_actions: int, activation: str,
               clip_eps: float, value_coef: float, entropy_coef: float, inv_m: float,
-              chunk: int, stages: int):
-    """Pad the net, allocate a workspace of ``chunk`` frames and launch.
-    Returns (names, hidden widths, out, workspace)."""
+              chunk: int, stages: int, quant: str = "none"):
+    """Pad the net (and for ``quant="int8fwd"`` quantise its forward),
+    allocate a workspace of ``chunk`` frames and launch.  Returns (names,
+    hidden widths, out, workspace)."""
     names, L, w, b = dense_layers(params)
     hidden = _check_net(w, L, num_actions, HEAD_PAD, activation)
     t_mb, f, n = obs.shape
     if t_mb * n == 0:
         raise ValueError(f"empty minibatch: obs is {tuple(obs.shape)}")
     weights, biases = _pad_net([x.to(BF16) for x in w], b, L, f, num_actions)
+    int8fwd = None
+    if quant == "int8fwd":
+        fwd, _, sw = _int8_fwd(w, L, f, hidden)
+        int8fwd = (fwd, sw)
     ws = torch.empty((_ws_rows(hidden)[-1], chunk * _npad(n)), dtype=BF16, device=obs.device)
     net = (weights, biases, action.to(torch.int32).contiguous(),
-           [x.contiguous() for x in scalars], int(activation == "relu"), clip_eps, -inv_m,
-           entropy_coef * inv_m, value_coef * inv_m)
+           [x.contiguous() for x in scalars], int(activation == "relu"), int8fwd, clip_eps,
+           -inv_m, entropy_coef * inv_m, value_coef * inv_m)
     return names, hidden, _bf16_call(obs, hidden, num_actions, ws, chunk, stages, net), ws
 
 
@@ -906,8 +975,8 @@ def chunk_frames(t_mb: int, n: int) -> int:
 
 def _launch_bf16(params: Params, obs, action, logp_old, value_old, adv_norm, target,
                  num_actions: int, inv_m: float, **kw):
-    """K1's bf16 mode: kernels A and B over chunks of frames, then the grads
-    dict and the loss vector."""
+    """K1's bf16 or int8fwd mode (``kw["quant"]``): kernels A and B over
+    chunks of frames, then the grads dict and the loss vector."""
     t_mb, f, n = obs.shape
     names, hidden, out, _ = _run_bf16(params, obs, action, (logp_old, value_old, adv_norm, target),
                                       num_actions=num_actions, inv_m=inv_m,
@@ -921,17 +990,21 @@ def _launch_bf16(params: Params, obs, action, logp_old, value_old, adv_norm, tar
 def k1_chain(params: Params, obs: torch.Tensor, action: torch.Tensor,
              logp_old: torch.Tensor, value_old: torch.Tensor, adv_norm: torch.Tensor,
              target: torch.Tensor, *, num_actions: int, activation: str, clip_eps: float,
-             value_coef: float, entropy_coef: float, total_rows: int = 0) -> K1Chain:
-    """Kernel A of K1's bf16 mode alone, over the whole minibatch (its
-    workspace holds every frame): the :class:`K1Chain` of
+             value_coef: float, entropy_coef: float, total_rows: int = 0,
+             quant: str = "none") -> K1Chain:
+    """Kernel A of K1's bf16 or int8fwd mode alone, over the whole minibatch
+    (its workspace holds every frame): the :class:`K1Chain` of
     :func:`k1_chain_plain`, whose operands are views of the workspace.  On
     CUDA it adds one to ``k1_chain.launches``; on the CPU it runs
     :func:`k1_chain_plain`."""
     scalars = (logp_old, value_old, adv_norm, target)
     kw = dict(num_actions=num_actions, activation=activation, clip_eps=clip_eps,
-              value_coef=value_coef, entropy_coef=entropy_coef)
+              value_coef=value_coef, entropy_coef=entropy_coef, quant=quant)
     if _check(obs, scalars, action).type == "cpu":
         return k1_chain_plain(params, obs, action, *scalars, total_rows=total_rows, **kw)
+    if quant not in ("none", "int8fwd"):
+        raise ValueError(f"kernel A runs quant 'none' or 'int8fwd', not {quant!r}")
+    check_mode(quant, activation, dense_layers(params)[1])
     t_mb, f, n = obs.shape
     inv_m = 1.0 / (total_rows or t_mb * n)
     _, hidden, out, ws = _run_bf16(params, obs, action, scalars, inv_m=inv_m, chunk=t_mb,
@@ -1002,30 +1075,39 @@ def _int8_cells(n: int):
     return cw, _npad(n) // cw
 
 
-def _int8_net(w, b, L: int, f: int, A: int, hidden):
-    """K1 int8's weights as its kernels take them: the forward kernels
-    transposed (out, in) with the contraction zero-padded to 32 (the first
-    from Fp), the merged head (HEAD_PAD, H) likewise; the hidden kernels
-    (in, out) for the dh products, out padded to 32; the int8 head as bf16
-    (H, HEAD_PAD); the biases, the head's padded; the L+1 scales."""
+def _padded_int8(src, rows: int, k: int):
+    out = torch.zeros((rows, k), dtype=torch.int8, device=src.device)
+    out[:src.shape[0], :src.shape[1]] = src
+    return out
+
+
+def _int8_fwd(w, L: int, f: int, hidden):
+    """The int8 forward's weights as the kernels take them (K1's int8 and
+    int8fwd modes): each forward kernel transposed (out, in) with the
+    contraction zero-padded to 32 (the first from Fp), the merged head
+    (HEAD_PAD, H) likewise.  Returns (those, the int8 tensors of
+    :func:`quantize_weights`, the L+1 scales)."""
     wq, sw = quantize_weights(w, L)
+    fwd = [_padded_int8(wq[0].t(), hidden[0], _round32(_round16(f)))]
+    fwd += [_padded_int8(wq[l].t(), hidden[l], _round32(hidden[l - 1])) for l in range(1, L)]
+    fwd.append(_padded_int8(wq[L].t(), HEAD_PAD, _round32(hidden[-1])))
+    return fwd, wq, sw.contiguous()
+
+
+def _int8_net(w, b, L: int, f: int, A: int, hidden):
+    """K1 int8's weights as its kernels take them: the forward's
+    (:func:`_int8_fwd`); the hidden kernels (in, out) for the dh products,
+    out padded to 32; the int8 head as bf16 (H, HEAD_PAD); the biases, the
+    head's padded; the L+1 scales."""
+    fwd, wq, sw = _int8_fwd(w, L, f, hidden)
     device = wq[0].device
-
-    def padded(src, rows, k):
-        out = torch.zeros((rows, k), dtype=torch.int8, device=device)
-        out[:src.shape[0], :src.shape[1]] = src
-        return out
-
-    fwd = [padded(wq[0].t(), hidden[0], _round32(_round16(f)))]
-    fwd += [padded(wq[l].t(), hidden[l], _round32(hidden[l - 1])) for l in range(1, L)]
-    fwd.append(padded(wq[L].t(), HEAD_PAD, _round32(hidden[-1])))
-    bwd = [fwd[0]] + [padded(wq[l], hidden[l - 1], _round32(hidden[l])) for l in range(1, L)]
+    bwd = [fwd[0]] + [_padded_int8(wq[l], hidden[l - 1], _round32(hidden[l])) for l in range(1, L)]
     whb = torch.zeros((hidden[-1], HEAD_PAD), dtype=BF16, device=device)
     whb[:, :A + 1] = wq[L].to(BF16)
     bpv = torch.zeros(HEAD_PAD, dtype=torch.float32, device=device)
     bpv[:A + 1] = torch.cat([b[L], b[L + 1]]).float()
     biases = [x.float().contiguous() for x in b[:L]] + [bpv]
-    return fwd, bwd, whb, biases, sw.contiguous()
+    return fwd, bwd, whb, biases, sw
 
 
 class _Int8Workspace(NamedTuple):
@@ -1233,8 +1315,8 @@ def _launch(params: Params, obs, action, logp_old, value_old, adv_norm, target,
             num_actions: int, activation: str, clip_eps: float,
             value_coef: float, entropy_coef: float, inv_m: float,
             quant: str = "none", bwd_bf16: bool = False):
-    """K1's modes in ``csrc/fused_update.cu`` (``int8fwd`` and ``bwd_bf16``):
-    pad the weights to its tiles, launch, and unpack the reduced sums into a
+    """K1's modes in ``csrc/fused_update.cu`` (``bwd_bf16``, after the bf16
+    or the int8fwd forward): pad the weights to its tiles, launch, and unpack the reduced sums into a
     grads dict and the loss vector."""
     names, L, w, b = dense_layers(params)
     t_mb, f, n = obs.shape
@@ -1256,8 +1338,7 @@ def _launch(params: Params, obs, action, logp_old, value_old, adv_norm, target,
     weights, biases = _pad_net(bf16_w, b, L, f, A)
 
     widths = [fp, *hidden]
-    partial, out, blocks, stride = _partials(device, widths, HEAD_PAD,
-                                             t_mb * -(-n // COLS), obs.shape)
+    partial, out, blocks, stride = _partials(device, widths, t_mb * -(-n // COLS), obs.shape)
     act32 = action.to(torch.int32).contiguous()
     scal = [x.contiguous() for x in (logp_old, value_old, adv_norm, target)]
     obs = obs.contiguous()
@@ -1303,13 +1384,14 @@ def fused_ppo_grads_fm(params: Params, obs: torch.Tensor, action: torch.Tensor,
 
     Returns ``(grads, losses)``: f32 grads keyed like ``params`` and
     ``losses = [total, policy, value, entropy, approx_kl]`` (means).  On
-    CUDA this launches ``csrc/fused_update_bf16.cu`` (the bf16 mode: kernels
-    A and B over chunks of frames), ``csrc/fused_update_int8.cu`` (the int8
-    mode: kernels A, S x L, Q and B over chunks of frames) or
-    ``csrc/fused_update.cu`` (the other modes) on the current stream
-    without synchronising and adds one to ``fused_ppo_grads_fm.launches``
-    and to ``launches_by_mode[mode_name(quant, bwd_bf16)]``; on the CPU it
-    runs :func:`fused_ppo_grads_fm_plain`."""
+    CUDA this launches ``csrc/fused_update_bf16.cu`` (the bf16 and int8fwd
+    modes: kernels A and B over chunks of frames), ``csrc/fused_update_int8.cu``
+    (the int8 mode: kernels A, S x L, Q and B over chunks of frames) or
+    ``csrc/fused_update.cu`` (the bf16 backward chain, ``bwd_bf16``) on the
+    current stream without synchronising and adds one to
+    ``fused_ppo_grads_fm.launches`` and to
+    ``launches_by_mode[mode_name(quant, bwd_bf16)]``; on the CPU it runs
+    :func:`fused_ppo_grads_fm_plain`."""
     scalars = (logp_old, value_old, adv_norm, target)
     device = _check(obs, scalars, action)
     check_mode(quant, activation, dense_layers(params)[1])
@@ -1323,11 +1405,12 @@ def fused_ppo_grads_fm(params: Params, obs: torch.Tensor, action: torch.Tensor,
                                         total_rows=total_rows, **kw)
     t_mb, _, n = obs.shape
     inv_m = 1.0 / (total_rows or t_mb * n)
-    if quant == "int8" or (quant == "none" and not bwd_bf16):
-        split = _launch_int8 if quant == "int8" else _launch_bf16
-        result = split(params, obs, action, *scalars, num_actions=num_actions,
-                       activation=activation, clip_eps=clip_eps, value_coef=value_coef,
-                       entropy_coef=entropy_coef, inv_m=inv_m)
+    split_kw = dict(num_actions=num_actions, activation=activation, clip_eps=clip_eps,
+                    value_coef=value_coef, entropy_coef=entropy_coef, inv_m=inv_m)
+    if quant == "int8":
+        result = _launch_int8(params, obs, action, *scalars, **split_kw)
+    elif not bwd_bf16:
+        result = _launch_bf16(params, obs, action, *scalars, quant=quant, **split_kw)
     else:
         result = _launch(params, obs, action, *scalars, inv_m=inv_m, **kw)
     fused_ppo_grads_fm.launches += 1
@@ -1336,64 +1419,173 @@ def fused_ppo_grads_fm(params: Params, obs: torch.Tensor, action: torch.Tensor,
 
 
 def zero_fm_counts() -> None:
-    """Set K1's counts to 0: its calls, by mode, and the launches of
-    ``csrc/fused_update.cu`` and of each int8 kernel (``INT8_KERNELS``; a
-    call launches each once a chunk, kernel S once a chunk and layer)."""
+    """Set K1's and K4's counts to 0: K1's calls, by mode, and the launches
+    of ``csrc/fused_update.cu``, of K1 bf16's kernels A and B (``bf16_chain``,
+    ``bf16_dw``: the bf16 and int8fwd modes) and of each int8 kernel
+    (``INT8_KERNELS``), a call launching each once a chunk, kernel S once a
+    chunk and layer; K4's calls and its kernels' launches (``k4_chain``,
+    ``k4_dw``)."""
     fused_ppo_grads_fm.launches = 0
     fused_ppo_grads_fm.launches_by_mode = {
         mode_name(q, bb): 0 for q in QUANT_MODES for bb in (False, True)}
-    fused_ppo_grads_fm.launches_by_kernel = dict.fromkeys(("fused_update.cu", *INT8_KERNELS), 0)
+    fused_ppo_grads_fm.launches_by_kernel = dict.fromkeys(
+        ("fused_update.cu", "bf16_chain", "bf16_dw", *INT8_KERNELS), 0)
+    fused_ppo_grads.launches = 0
+    fused_ppo_grads.launches_by_kernel = dict.fromkeys(("k4_chain", "k4_dw"), 0)
 
 
-zero_fm_counts()
+
+
+def _k4_net(w, b, L: int, f: int, A: int):
+    """K4's weights as its kernels take them: the first kernel with zero rows
+    to ``Fp``, the split head (H, HEAD_SPLIT) bf16 with the policy in columns
+    0..A-1 and the value in VALUE_ROW, its bias likewise."""
+    device = w[0].device
+    h_top = w[L].shape[0]
+    w0 = torch.zeros((_round16(f), w[0].shape[1]), dtype=BF16, device=device)
+    w0[:f] = w[0].to(BF16)
+    wh = torch.zeros((h_top, HEAD_SPLIT), dtype=BF16, device=device)
+    wh[:, :A] = w[L].to(BF16)
+    wh[:, VALUE_ROW] = w[L + 1][:, 0].to(BF16)
+    bh = torch.zeros(HEAD_SPLIT, dtype=torch.float32, device=device)
+    bh[:A] = b[L].float()
+    bh[VALUE_ROW] = b[L + 1][0].float()
+    weights = [w0] + [x.to(BF16).contiguous() for x in w[1:L]] + [wh]
+    biases = [x.float().contiguous() for x in b[:L]] + [bh]
+    return weights, biases
+
+
+def _k4_call(obs, hidden, num_actions: int, ws, chunk: int, stages: int, net=None):
+    """Launch K4's kernels over ``obs`` (M, F), ``chunk`` rows at a time,
+    through the workspace ``ws`` (:func:`_ws_rows` with Fp rows of x^T,
+    ``chunk`` padded columns) bf16: kernel A, kernel B or both
+    (``stages``).  ``net``, kernel A's inputs: (weights, biases, int32
+    action, the 4 per-row scalars, relu, clip, -1/M, entropy and value
+    scales).  Returns ``out`` as :func:`_unpack` reads it."""
+    m_rows, f = obs.shape
+    device = obs.device
+    fp = _round16(f)
+    shapes = list(zip([fp, *hidden], [*hidden, HEAD_PAD]))   # each dW
+    n_w = sum(i * o for i, o in shapes)
+    n_b = sum(hidden) + HEAD_PAD
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks_a = min(_npad(chunk) // COLS, sms)
+    tiles = sum(-(-i // DW_TILE) * -(-o // DW_TILE) for i, o in shapes)
+    ranges = max(1, min(-(-DW_BLOCKS_PER_SM * sms // tiles), _npad(chunk) // COLS))
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)
+    partial_a, partial_b, out = new(blocks_a, n_b + 4), new(ranges, n_w), new(n_w + n_b + 4)
+    obs = obs.contiguous()
+    if obs.data_ptr() % 16:   # kernel A reads a tile's rows as 16-byte pieces
+        obs = obs.clone()
+    dims = (ctypes.c_int * len(hidden))(*hidden)
+    hkeep = None
+    if net is None:
+        w_ptrs = b_ptrs = None
+        ptrs, relu, scales = [None] * 5, 0, (0.0,) * 4
+    else:
+        weights, biases, action, scalars, relu, *scales = net
+        w_ptrs, _w = _ptr_array(weights)
+        b_ptrs, _b = _ptr_array(biases)
+        ptrs = [action.data_ptr(), *[x.data_ptr() for x in scalars]]
+        if not relu:   # tanh: the f32 activations each compute thread keeps
+            hkeep = new(blocks_a, len(hidden), 16, A_COMPUTE_THREADS, 2)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _library_k4().k4_launch(
+            obs.data_ptr(), *ptrs, w_ptrs, b_ptrs, ctypes.cast(dims, _PTR), len(hidden), f, fp,
+            num_actions, relu, m_rows, *scales, ws.data_ptr(), ws.shape[0], ws.shape[1], chunk,
+            partial_a.data_ptr(), blocks_a, partial_b.data_ptr(), ranges,
+            None if hkeep is None else hkeep.data_ptr(), out.data_ptr(), stream, stages)
+    if err != 0:
+        raise RuntimeError(f"K4 kernel launch failed: CUDA error {err}")
+    _count(fused_ppo_grads, stages, -(-m_rows // chunk), "k4")
+    return out
+
+
+def _run_k4(params: Params, obs, action, scalars, *, num_actions: int, activation: str,
+            clip_eps: float, value_coef: float, entropy_coef: float, inv_m: float,
+            chunk: int, stages: int):
+    """Pad the net, allocate a workspace of ``chunk`` rows and launch K4.
+    Returns (names, hidden widths, out, workspace)."""
+    names, L, w, b = dense_layers(params)
+    hidden = _check_net(w, L, num_actions, HEAD_PAD, activation)
+    m_rows, f = obs.shape
+    if m_rows == 0:
+        raise ValueError(f"empty minibatch: obs is {tuple(obs.shape)}")
+    weights, biases = _k4_net(w, b, L, f, num_actions)
+    ws = torch.empty((_ws_rows(hidden, _round16(f))[-1], _npad(chunk)), dtype=BF16,
+                     device=obs.device)
+    net = (weights, biases, action.to(torch.int32).contiguous(),
+           [x.contiguous() for x in scalars], int(activation == "relu"), clip_eps, -inv_m,
+           entropy_coef * inv_m, value_coef * inv_m)
+    return names, hidden, _k4_call(obs, hidden, num_actions, ws, chunk, stages, net), ws
 
 
 def _launch_rm(params: Params, obs, action, logp_old, value_old, adv_norm, target,
                num_actions: int, activation: str, clip_eps: float,
                value_coef: float, entropy_coef: float, inv_m: float):
-    """Pad the weights to K4's tiles (the policy head in rows 0..A-1 of a
-    48-row head, the value head in row 32), launch, and unpack."""
-    names, L, w, b = dense_layers(params)
-    m_rows, f = obs.shape
-    A = num_actions
-    hidden = _check_net(w, L, A, VALUE_ROW_RM + 1, activation)
-    device = obs.device
-    fp = _round16(f)
-    h_top = hidden[-1]
-    w0 = torch.zeros((fp, hidden[0]), dtype=BF16, device=device)
-    w0[:f] = w[0].to(BF16)
-    wh = torch.zeros((h_top, HEAD_PAD_RM), dtype=BF16, device=device)
-    wh[:, :A] = w[L].to(BF16)
-    wh[:, VALUE_ROW_RM] = w[L + 1][:, 0].to(BF16)
-    bh = torch.zeros(HEAD_PAD_RM, dtype=torch.float32, device=device)
-    bh[:A] = b[L].float()
-    bh[VALUE_ROW_RM] = b[L + 1][0].float()
-    weights = [w0] + [x.to(BF16).contiguous() for x in w[1:L]] + [wh]
-    biases = [x.float().contiguous() for x in b[:L]] + [bh]
-
-    widths = [fp, *hidden]
-    partial, out, blocks, stride = _partials(device, widths, HEAD_PAD_RM,
-                                             -(-m_rows // ROWS_RM), obs.shape)
-    act32 = action.to(torch.int32).contiguous()
-    scal = [x.contiguous() for x in (logp_old, value_old, adv_norm, target)]
-    obs = obs.contiguous()
-    w_ptrs, _w = _ptr_array(weights)
-    b_ptrs, _b = _ptr_array(biases)
-    dims = (ctypes.c_int * L)(*hidden)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _library_rm().fused_ppo_grads_rm_launch(
-            obs.data_ptr(), act32.data_ptr(), *[x.data_ptr() for x in scal],
-            w_ptrs, b_ptrs, ctypes.cast(dims, _PTR), L, f, fp, A,
-            int(activation == "relu"), m_rows,
-            clip_eps, -inv_m, entropy_coef * inv_m, value_coef * inv_m,
-            partial.data_ptr(), blocks, stride, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"row-major PPO gradient kernel launch failed: CUDA error {err}")
-    dw, db, dwh, dbh, sums = _unpack(out, widths, HEAD_PAD_RM, f)
-    v = VALUE_ROW_RM
-    grads = _grads_dict(names, dw, db, dwh[:, :A], dbh[:A], dwh[:, v:v + 1], dbh[v:v + 1])
+    """K4: kernels A and B over chunks of CHUNK_COLS rows, then the grads
+    dict (the merged head split into the policy's and the value's) and the
+    loss vector."""
+    f = obs.shape[1]
+    names, hidden, out, _ = _run_k4(
+        params, obs, action, (logp_old, value_old, adv_norm, target), num_actions=num_actions,
+        activation=activation, clip_eps=clip_eps, value_coef=value_coef,
+        entropy_coef=entropy_coef, inv_m=inv_m, chunk=min(CHUNK_COLS, obs.shape[0]),
+        stages=STAGE_CHAIN | STAGE_DW)
+    dw, db, dwpv, dbpv, sums = _unpack(out, [_round16(f), *hidden], HEAD_PAD, f)
+    grads = _merged_grads(names, dw, db, dwpv, dbpv, num_actions)
     return grads, _loss_vector(sums, inv_m, value_coef, entropy_coef)
+
+
+def k4_chain(params: Params, obs: torch.Tensor, action: torch.Tensor,
+             logp_old: torch.Tensor, value_old: torch.Tensor, adv_norm: torch.Tensor,
+             target: torch.Tensor, *, num_actions: int, activation: str, clip_eps: float,
+             value_coef: float, entropy_coef: float, total_rows: int = 0) -> K1Chain:
+    """K4's kernel A alone, over the whole minibatch (its workspace holds
+    every row): the :class:`K1Chain` of :func:`k4_chain_plain`, whose
+    operands are views of the workspace.  On CUDA it adds one to
+    ``k4_chain.launches``; on the CPU it runs :func:`k4_chain_plain`."""
+    scalars = (logp_old, value_old, adv_norm, target)
+    kw = dict(num_actions=num_actions, activation=activation, clip_eps=clip_eps,
+              value_coef=value_coef, entropy_coef=entropy_coef)
+    if _check_rm(obs, scalars, action).type == "cpu":
+        return k4_chain_plain(params, obs, action, *scalars, total_rows=total_rows, **kw)
+    m_rows, f = obs.shape
+    inv_m = 1.0 / (total_rows or m_rows)
+    _, hidden, out, ws = _run_k4(params, obs, action, scalars, inv_m=inv_m, chunk=m_rows,
+                                 stages=STAGE_CHAIN, **kw)
+    k4_chain.launches += 1
+    _, db, _, dbpv, sums = _unpack(out, [_round16(f), *hidden], HEAD_PAD, f)
+    row_h, row_dh, row_dp, _ = _ws_rows(hidden, _round16(f))
+    op = lambda r, k: ws[r:r + k, None, :m_rows]
+    return K1Chain([op(r, h) for r, h in zip(row_h, hidden)], op(row_dh, num_actions + 1),
+                   [op(r, h) for r, h in zip(row_dp, hidden)], db, dbpv[:num_actions + 1], sums)
+
+
+def k4_dw(chain: K1Chain, obs: torch.Tensor):
+    """K4's kernel B alone, on ``chain``'s operands and x^T of ``obs`` (M,
+    F) (copied into a workspace of the whole minibatch, zero past row M):
+    the dW of ``k1_dw_plain(chain, obs.t()[None])``.  On CUDA it adds one to
+    ``k4_dw.launches``; on the CPU it runs :func:`k1_dw_plain`."""
+    if obs.device.type == "cpu":
+        return k1_dw_plain(chain, obs.t()[None])
+    m_rows, f = obs.shape
+    hidden = [h.shape[0] for h in chain.hs]
+    num_actions = chain.dheads.shape[0] - 1
+    row_h, row_dh, row_dp, rows = _ws_rows(hidden, _round16(f))
+    ws = torch.zeros((rows, _npad(m_rows)), dtype=BF16, device=obs.device)
+    ws[:f, :m_rows] = obs.t()
+    for r, x in [*zip(row_h, chain.hs), (row_dh, chain.dheads), *zip(row_dp, chain.dpres)]:
+        ws[r:r + x.shape[0], :m_rows] = x[:, 0]
+    out = _k4_call(obs, hidden, num_actions, ws, m_rows, STAGE_DW)
+    k4_dw.launches += 1
+    dw, _, dwpv, _, _ = _unpack(out, [_round16(f), *hidden], HEAD_PAD, f)
+    return dw, dwpv[:, :num_actions + 1]
+
+
+k4_chain.launches = 0
+k4_dw.launches = 0
 
 
 def fused_ppo_grads(params: Params, obs: torch.Tensor, action: torch.Tensor,
@@ -1408,9 +1600,10 @@ def fused_ppo_grads(params: Params, obs: torch.Tensor, action: torch.Tensor,
     ``value_old``, ``adv_norm`` (normalised by the caller), ``target``:
     (M,) float32.  ``total_rows`` sets the mean's denominator (0: M).
     Returns ``(grads, losses)`` as :func:`fused_ppo_grads_fm`.  On CUDA this
-    launches ``csrc/fused_update_rm.cu`` on the current stream without
-    synchronising and adds one to ``fused_ppo_grads.launches``; on the CPU
-    it runs :func:`fused_ppo_grads_rm_plain`."""
+    launches ``csrc/k4_split.cu`` (kernels A and B over chunks of rows) on
+    the current stream without synchronising and adds one to
+    ``fused_ppo_grads.launches``; on the CPU it runs
+    :func:`fused_ppo_grads_rm_plain`."""
     scalars = (logp_old, value_old, adv_norm, target)
     device = _check_rm(obs, scalars, action)
     kw = dict(num_actions=num_actions, activation=activation, clip_eps=clip_eps,
@@ -1424,4 +1617,4 @@ def fused_ppo_grads(params: Params, obs: torch.Tensor, action: torch.Tensor,
     return result
 
 
-fused_ppo_grads.launches = 0
+zero_fm_counts()

@@ -174,12 +174,13 @@ def test_stage_entries_run_plain_on_cpu():
 
 def test_split_probe_anchors_match_the_source():
     """tools/k1_split_probe.py builds its variants by substitution in
-    csrc/fused_update_bf16.cu; each anchor must be there exactly once, and
-    without a card the tool refuses before it builds anything."""
-    from pikazoo_tpu_torch import _build
+    csrc/fused_update_bf16.cu with csrc/k1_split.cuh (kernel A) inlined; each
+    anchor must be there exactly once, and without a card the tool refuses
+    before it builds anything."""
     from pikazoo_tpu_torch.tools import k1_split_probe
 
-    src = (_build.CSRC_DIR / "fused_update_bf16.cu").read_text()
+    src = k1_split_probe.source()
+    assert "chain_kernel" in src and '#include "k1_split.cuh"' not in src
     assert "clock64" in k1_split_probe.substitute(src, k1_split_probe.CYCLES)
     for pairs in k1_split_probe.VARIANTS.values():
         assert k1_split_probe.substitute(src, pairs) != src
