@@ -46,7 +46,7 @@ from pikazoo_tpu_torch.tools.k1_precision_probe import float64_plain
 from pikazoo_tpu_torch.train import PPOConfig, make_ppo_trainer, ppo
 from pikazoo_tpu_torch.train import fused_update
 from pikazoo_tpu_torch.train.fused_update import fused_ppo_grads, fused_ppo_grads_fm
-from pikazoo_tpu_torch.train.networks import ActorCritic, apply_fm
+from pikazoo_tpu_torch.train.networks import ActorCritic, apply_fm, dense_layers
 
 AI_BATCH, AI_FRAMES = 65536, 500          # rule-AI self-play (both seats)
 RANDOM_BATCH, RANDOM_FRAMES = 262144, 200  # random-action self-play
@@ -247,8 +247,7 @@ def build_all(card: str):
         lib = build()
         return lib._name, time.perf_counter() - t0
 
-    libraries = (predict_cuda._library, fused_step._library, fused_update._library,
-                 fused_update._library_bf16, fused_update._library_int8, fused_update._library_k4,
+    libraries = (predict_cuda._library, fused_step._library, fused_update._library_bf16, fused_update._library_int8, fused_update._library_k4,
                  compaction_probe._library, fm_roofline._library, fm_kernel_probe._library)
     with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
         builds = [pool.submit(timed_build, b) for b in libraries]
@@ -504,8 +503,9 @@ SPLIT_STAGES = {
 
 
 def hold_split(name: str, label: str, args, kw, card: str, phase: int, design: str = "K1"):
-    """A split design's two kernels (K1 bf16 and int8fwd: ``k1_chain`` /
-    ``k1_dw``; K4: ``k4_chain`` / ``k4_dw``), each against its plain version
+    """A split design's two kernels (K1 bf16 and int8fwd, each with or
+    without the bf16 backward chain: ``k1_chain`` / ``k1_dw``; K4:
+    ``k4_chain`` / ``k4_dw``), each against its plain version
     on the card: kernel A (the whole minibatch) against its plain chain, its
     operands and bias grads within BF16_TOL's relative L2 and cos and its
     loss sums (as means) within its rtol; then kernel B on kernel A's own
@@ -569,8 +569,8 @@ def split_times(name: str, args, kw, card: str, call_ms: float, phase: int):
     """CUDA-event ms of a split design's kernel A alone and kernel B alone
     over the wrapper's own chunks (min of two readings of 5 calls), beside
     the whole call's and the design's floor by bytes: K1 bf16 or int8fwd
-    (``kw["quant"]``, args feature-major) or K4 (name "K4", args rows).
-    Returns (A ms, B ms)."""
+    (``kw["quant"]``, with or without ``kw["bwd_bf16"]``, args feature-major)
+    or K4 (name "K4", args rows).  Returns (A ms, B ms)."""
     params, obs, action, *scalars = args
     common = dict(num_actions=kw["num_actions"], activation=kw["activation"],
                   clip_eps=kw["clip_eps"], value_coef=kw["value_coef"],
@@ -587,13 +587,13 @@ def split_times(name: str, args, kw, card: str, call_ms: float, phase: int):
         chunks, unit = -(-t_mb // chunk), "frame(s)"
         run = lambda stages: fused_update._run_bf16(params, obs, action, scalars, chunk=chunk,
                                                     stages=stages, quant=kw.get("quant", "none"),
-                                                    **common)
+                                                    bwd_bf16=kw.get("bwd_bf16", False), **common)
         floor_ms, nbytes = k1_split_floor(rows)
     a_ms = min(cuda_ms(lambda: run(fused_update.STAGE_CHAIN), 5) for _ in range(2))
     b_ms = min(cuda_ms(lambda: run(fused_update.STAGE_DW), 5) for _ in range(2))
     b = grad_bound(rows, kw.get("quant", "none"))
     relu = ""
-    if kw["activation"] == "tanh" and kw.get("quant", "none") == "none":
+    if kw["activation"] == "tanh" and kw.get("quant", "none") == "none" and not kw.get("bwd_bf16"):
         # Kernel A on the same inputs with relu: no tanh, and K4 keeps no f32
         # activations (relu's derivative is the same from the bf16 value).
         common["activation"] = "relu"
@@ -715,11 +715,12 @@ def k1_int8_split_times(args, kw, card: str, call_ms: float):
     return a_ms, s_ms, q_ms
 
 
-def hold_k1_float64(args, kw, card: str):
-    """At full width: the worst grad leaf's distance from a float64 plain
-    version, of the kernel and of the plain version; raises unless the
-    kernel's is at most K1_F64_RATIO times the plain version's (one-signed
-    drift in kernel B's long sums would put it further)."""
+def hold_k1_float64(args, kw, card: str, label: str = "K1 bf16", phase: int = 9):
+    """The worst grad leaf's distance from a float64 plain version, of the
+    kernel and of the plain version; raises unless the kernel's is at most
+    K1_F64_RATIO times the plain version's (one-signed drift in kernel B's
+    long sums would put it further, as would the bf16 chain's head dh on
+    the tensor cores)."""
     exact = float64_plain(args, kw)
     got, _ = fused_ppo_grads_fm(*args, **kw)
     plain, _ = fused_update.fused_ppo_grads_fm_plain(*args, **kw)
@@ -728,10 +729,57 @@ def hold_k1_float64(args, kw, card: str):
                                 / exact[k].double().norm()), k) for k in exact)
     kd, pd = dist(got), dist(plain)
     if kd[0] > K1_F64_RATIO * pd[0]:
-        raise AssertionError(f"K1 bf16 {kd[0]:.3e} ({kd[1]}) from float64, plain {pd[0]:.3e}: "
+        raise AssertionError(f"{label} {kd[0]:.3e} ({kd[1]}) from float64, plain {pd[0]:.3e}: "
                              f"more than {K1_F64_RATIO}x")
-    print(f"phase 9 K1 bf16 vs a float64 plain version: kernel worst leaf {kd[0]:.3e} ({kd[1]}), "
-          f"plain {pd[0]:.3e} ({pd[1]}), ratio {kd[0] / pd[0]:.3f} <= {K1_F64_RATIO} [{card}]")
+    print(f"phase {phase} {label} vs a float64 plain version: kernel worst leaf {kd[0]:.3e} "
+          f"({kd[1]}), plain {pd[0]:.3e} ({pd[1]}), ratio {kd[0] / pd[0]:.3f} <= {K1_F64_RATIO} "
+          f"[{card}]")
+
+
+def hold_chain_float64(label: str, args, kw, card: str):
+    """The bf16 backward chain on kernel A's own operands (``k1_chain``, the
+    whole minibatch): layer by layer, dpre_b = bf16(bf16(W . below) * act'(h))
+    from kernel A's hs, dheads and the dpre_b above, with the product in
+    float64 and in f32 (the plain version's).  Raises unless kernel A's
+    dpre_b sits at most K1_F64_RATIO times as far (relative L2) from the
+    float64 recurrence as the f32 one does: a product that rounds one way
+    before the bf16 round (the head's dh on the tensor cores) would put it
+    further.  Unlike the call's distance from float64, this one is blind to
+    the loss's exp / log roundings, which move dheads and, after the int8
+    forward (exact integer products in f32 and float64 alike), are all
+    that keeps the kernel off a float64 plain version."""
+    chain = fused_update.k1_chain(*args, **kw)
+    _, L, w, _ = dense_layers(args[0])
+    bf = torch.bfloat16
+    weights = [x.to(bf) for x in w[1:L]] + [torch.cat([w[L], w[L + 1]], dim=1).to(bf)]
+    relu = kw["activation"] == "relu"
+    sq = {key: [0.0] * L for key in ("kernel", "f32", "norm")}
+    for t in range(chain.dheads.shape[1]):
+        for c0 in range(0, chain.dheads.shape[2], OPERAND_COLS):
+            cols = slice(c0, c0 + OPERAND_COLS)
+            for l in range(L):
+                above = chain.dheads if l == L - 1 else chain.dpres[l + 1]
+                wt, below = weights[l], above[:, t, cols]
+                h = chain.hs[l][:, t, cols]
+                da = (h > 0).to(bf) if relu else 1.0 - h * h
+                exact = (torch.matmul(wt.double(), below.double()).to(bf) * da).double()
+                f32 = (torch.matmul(wt.float(), below.float()).to(bf) * da).double()
+                got = chain.dpres[l][:, t, cols].double()
+                sq["kernel"][l] += float((got - exact).square().sum())
+                sq["f32"][l] += float((f32 - exact).square().sum())
+                sq["norm"][l] += float(exact.square().sum())
+    del chain
+    rel = {key: [(sq[key][l] / sq["norm"][l]) ** 0.5 for l in range(L)] for key in ("kernel", "f32")}
+    for l in range(L):
+        if rel["kernel"][l] > K1_F64_RATIO * rel["f32"][l]:
+            raise AssertionError(f"{label}: kernel A's dpre{l} {rel['kernel'][l]:.3e} from the "
+                                 f"float64 chain, f32 products {rel['f32'][l]:.3e}: more than "
+                                 f"{K1_F64_RATIO}x")
+    shape = "x".join(str(d) for d in args[1].shape)
+    print(f"phase 11 {label}, the bf16 chain on kernel A's operands vs float64 products, obs "
+          f"{shape}: dpre_l relative L2 kernel {[float(f'{x:.3e}') for x in rel['kernel']]}, f32 "
+          f"products {[float(f'{x:.3e}') for x in rel['f32']]}, each ratio <= {K1_F64_RATIO} "
+          f"[{card}]")
 
 
 def chains_apart(args, kw, card: str):
@@ -1026,9 +1074,9 @@ def probe_p2(card: str):
     b = mm_bound(P2_FULL[0] * P2_FULL[1])
     chain, plain_ms = ms["chain"][0], min(ms["chain"][1], ms["phased"][1])
     print(f"phase 14 time K1 bf16 (fused_update_bf16.cu) on the same obs and weights "
-          f"{k1_ms:.3f} ms; the products alone in the one-kernel design of fused_update.cu "
-          f"(P2 chain) {chain:.3f} ms; 8 torch.matmul calls {mm_ms:.3f} ms; bound {b[0]:.4f} ms "
-          f"by {b[1]} [{card}]")
+          f"{k1_ms:.3f} ms; the products alone in K1's first, one-kernel design (P2 chain) "
+          f"{chain:.3f} ms; 8 torch.matmul calls {mm_ms:.3f} ms; bound {b[0]:.4f} ms by {b[1]} "
+          f"[{card}]")
     zero_counts()
     if fm_roofline.main(["--steps", "2", "--iters", "2"]):
         raise AssertionError("fm_roofline main failed")
@@ -1236,8 +1284,9 @@ def main() -> int:
 
     # Phase 11: K4 and K1's other modes vs their plain versions on the card:
     # full width, ragged, and for int8 one dynamic-scale cell of 3000 columns
-    # (a frame whose width is no multiple of 128 is one cell).  K4 and the
-    # split modes (int8fwd, int8) also stage by stage.
+    # (a frame whose width is no multiple of 128 is one cell); bwd_bf16 also
+    # after the int8fwd forward.  Each also stage by stage, and bwd_bf16
+    # against a float64 plain version.
     plain_rm = fused_update.fused_ppo_grads_rm_plain
     rows = rows_of(full)
     k4_ragged = rows_of(k1_inputs(1, 3000, "relu", 23))
@@ -1260,6 +1309,18 @@ def main() -> int:
             chains_apart(full, tanh_kw, card)
             cases.append(("ragged", k1_inputs(3, 1000, "relu", 25),
                           dict(kw, activation="relu")))
+            cases.append(("full width, int8fwd forward", full, dict(kw, quant="int8fwd")))
+            # Its two kernels stage by stage, and its distance from float64
+            # (the head's dh on the tensor cores would put it off): the call's
+            # after the bf16 forward; kernel A's chain on its own operands at
+            # full width (after the int8 forward the call's distance is the
+            # loss's roundings alone, see hold_chain_float64).
+            for case, args, case_kw in cases:
+                hold_split("K1 bwd_bf16", case, args, case_kw, card, 11)
+                if case_kw.get("quant", "none") == "none":
+                    hold_k1_float64(args, case_kw, card, f"K1 bwd_bf16 [{case}]", 11)
+                if case != "ragged":
+                    hold_chain_float64(f"K1 bwd_bf16 [{case}]", args, case_kw, card)
         else:
             cases.append(("ragged", ragged_tanh, kw))
         if name == "int8":
@@ -1274,11 +1335,9 @@ def main() -> int:
                 (args[0], *[x[:INT8_HOLD_FRAMES] for x in args[1:]]), tanh_kw, card)
                 for case, args, _ in cases)
         if name == "int8fwd":
-            # Its two kernels stage by stage, full width and ragged; int8fwd
-            # runs the stock bf16 backward, so it takes bwd_bf16 too.
+            # Its two kernels stage by stage, full width and ragged.
             for case, args, case_kw in cases:
                 hold_split("K1 int8fwd", case, args, case_kw, card, 11)
-            cases.append(("full width, bf16 backward chain", full, dict(kw, bwd_bf16=True)))
         m_err = max(compare_grads(f"K1 {name} [{case}]", fused_ppo_grads_fm, plain_fm,
                                   args, case_kw, BF16_TOL, card, 11)
                     for case, args, case_kw in cases)
@@ -1291,6 +1350,12 @@ def main() -> int:
                   f"{step_share:.3e} (bound {INT8_STEP_SHARE}) [{card}]")
         if name == "int8fwd":
             split_times("K1 int8fwd", full, kw, card, m_ms, 11)
+        if name == "bwd_bf16":
+            split_times("K1 bwd_bf16", full, kw, card, m_ms, 11)
+            fwd8_kw = dict(kw, quant="int8fwd")
+            fwd8_ms, _ = time_grads("K1 int8fwd+bwd_bf16 T=32 N=131072", fused_ppo_grads_fm,
+                                    plain_fm, full, fwd8_kw, card, 11)
+            split_times("K1 int8fwd+bwd_bf16", full, fwd8_kw, card, fwd8_ms, 11)
         del cases
     del full, ragged_tanh
 
@@ -1324,17 +1389,16 @@ def main() -> int:
         expect_launches(f"self-play, K1 {name}", run, name, k1=calls)
         mode_launches[name] = run["fused_ppo_grads_fm"][name]
         # Which kernels served, each chunk of frames: the int8 mode's split
-        # kernels (A, S a layer, Q and the head's B), int8fwd's the bf16
-        # mode's (A with the int8 forward, B); only bwd_bf16 launches
-        # fused_update.cu, once a call.
+        # kernels (A, S a layer, Q and the head's B), int8fwd's and
+        # bwd_bf16's the bf16 mode's (A with the int8 forward or the bf16
+        # chain, B).
         chunks = k1_chunks(cfg)
         want = {"int8": {"int8_chain": chunks, "int8_requant": len(cfg.hidden) * chunks,
                          "int8_dw": chunks, "int8_head_dw": chunks},
                 "int8fwd": {"bf16_chain": chunks, "bf16_dw": chunks},
-                "bwd_bf16": {"fused_update.cu": calls}}[name]
+                "bwd_bf16": {"bf16_chain": chunks, "bf16_dw": chunks}}[name]
         expect_kernels(f"self-play, K1 {name}", run["by_kernel"], want, card, 12)
-        if name in ("int8", "int8fwd"):
-            time_learner_phases(runner, train_step, cfg, card, phase=12)
+        time_learner_phases(runner, train_step, cfg, card, phase=12)
         del runner, train_step
 
     # Phases 13-15: the probe tools, each kernel against its plain version,
@@ -1354,7 +1418,7 @@ def main() -> int:
          k1_launches, k1_err, k1_ms, k1_plain_ms, grad_bound(rows)),
     ]
     mode_sources = {"int8": "fused_update_int8.cu", "int8fwd": "fused_update_bf16.cu",
-                    "bwd_bf16": "fused_update.cu"}
+                    "bwd_bf16": "fused_update_bf16.cu"}
     for name in K1_MODES:
         m_err, m_ms, m_plain = mode_stats[name]
         entries.append((f"fused_ppo_grads_fm[{name}]", mode_sources[name],

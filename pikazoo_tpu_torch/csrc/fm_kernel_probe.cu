@@ -9,8 +9,8 @@
 // minibatch of M = T*N columns (obs (T, F, N) bf16 feature-major, per-column
 // action / logp_old / value_old / adv / target), with fixed coefficients
 // from the caller, no action mask, and split heads.  It is K1's bf16 mode
-// (fused_update.cu) but for the value head, which differs in four places,
-// each transcribed from the TPU kernel:
+// as K1's first, one-kernel design computed it, but for the value head,
+// which differs in four places, each transcribed from the TPU kernel:
 // - value = sum_h f32(bf16 Wv[h]) * f32(h2_b[h]) + bv, an f32 sum on the
 //   CUDA cores, not a head row of the tensor-core product;
 // - dh2 = Wp . bf16(dlogits) + f32(bf16 Wv) * dvalue, with dvalue in f32
@@ -24,8 +24,8 @@
 // H=256, A=18, ~1.9 TFLOP a full-width call (T=32, N=131072), ~1.94 ms at
 // 989 TFLOP/s.
 //
-// What the design does about it: K1's design, shared through
-// ppo_grads.cuh: 64-column tiles walked by each block over a contiguous
+// What the design does about it: K1's first (one-kernel) design, which K1
+// no longer runs, through the WMMA products of ppo_grads.cuh: 64-column tiles walked by each block over a contiguous
 // range; WMMA bf16 products with 16-product chunks added round-to-nearest
 // (the tensor cores' f32 sums lean toward zero); activations in shared
 // memory with padded row strides; per-block partials of every gradient

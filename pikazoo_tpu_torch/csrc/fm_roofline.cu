@@ -18,10 +18,12 @@
 // ~457 kFLOP a column, ~1.9 TFLOP a full-width call (T=32, N=131072),
 // against 70 bytes of input a column: ~1.94 ms at 989 TFLOP/s.
 //
-// What the design does about it: nothing new, on purpose.  It is K1
-// (fused_update.cu) with the loss and the elementwise work taken out, so
-// that the time of K1 minus this time is what K1's loss, activations and
-// row sums cost, and this time is K1's floor in K1's design: the same
+// What the design does about it: nothing new, on purpose.  It is K1's
+// first, one-kernel design with the loss and the elementwise work taken
+// out, as the TPU tool strips the TPU kernel; that design is gone from the
+// port (K1 runs the split design of fused_update_bf16.cu in every mode), so
+// this kernel is the JAX tool's products floor and stands for no mode the
+// port runs.  It keeps that design: the same
 // 64-column tile walked by each block over a contiguous range, the same
 // WMMA products with 16-product chunks added round-to-nearest
 // (ppo::gemm), the activations in shared memory with the same padded row

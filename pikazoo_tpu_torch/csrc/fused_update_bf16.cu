@@ -1,10 +1,10 @@
-// K1's bf16 mode (quant="none", bwd_bf16=False) and int8fwd mode
-// (quant="int8fwd", bwd_bf16=False) for Hopper, as two kernels.
+// K1's bf16 mode (quant="none") and int8fwd mode (quant="int8fwd"), each
+// with or without the bf16 backward chain (bwd_bf16), for Hopper, as two
+// kernels.
 //
 // Replaces the TPU kernel pikazoo_tpu/train/fused_update.py:504
 // `fused_ppo_grads_fm` (kernel body `_fm_kernel`, :244; pallas_call :618) in
-// these modes; the bf16 backward chain stays in fused_update.cu.  Python
-// side: pikazoo_tpu_torch/train/fused_update.py (`fused_ppo_grads_fm`, and
+// these modes (its int8 mode is fused_update_int8.cu).  Python side: pikazoo_tpu_torch/train/fused_update.py (`fused_ppo_grads_fm`, and
 // the stage entries `k1_chain` / `k1_dw`), which also holds the plain
 // versions the kernels are held against: `k1_chain_plain` (kernel A) and
 // `k1_dw_plain` (kernel B).  The rounding points are the function's: bf16
@@ -12,12 +12,17 @@
 // round to bf16; dpre and dheads rounded to bf16 for the products while the
 // bias grads sum their f32 values.  int8fwd's forward takes int8 products
 // and keeps bf16(h_f) for the same backward (chain_kernel, k1_split.cuh).
+// bwd_bf16 runs the hidden chain's elementwise steps in bf16, op by op, the
+// bias grads summing the rounded dpre (the JAX kernel's :451-466), and the
+// head's dh product on the CUDA cores (fma_slice, k1_split.cuh); its dW
+// operands are the same kinds, so kernel B serves it unchanged.
 //
 // What bounds it.  ~1.9 TFLOP a full-width call (T=32, N=131072, hidden
 // (256, 256)): 1.94 ms at the tensor cores' bf16 peak.  The one-kernel design
-// (fused_update.cu) ran at ~4% of that: each block read-modified-wrote a
-// partial of every dW (86,016 floats) for every 64-column tile, ~45 GB of L2
-// traffic a call, and every warp loaded its weight fragments from L2 itself.
+// that preceded this one (PERF.md §6) ran at ~4% of that: each block
+// read-modified-wrote a partial of every dW (86,016 floats) for every
+// 64-column tile, ~45 GB of L2 traffic a call, and every warp loaded its
+// weight fragments from L2 itself.
 //
 // What this design does about it: the dW products leave the tile loop.
 // - Kernel A (chain_kernel, in k1_split.cuh with the rest of the split
@@ -86,11 +91,12 @@
 // workspace ws (ws_rows, ws_cols) bf16 holds, for one chunk of frames, the
 // rows of bf16(h_0..h_{L-1}), bf16(dheads) (32 rows), bf16(dpre_0..dpre_{L-1}),
 // each frame's columns padded to Npad = 64 * ceil(N / 64); ws_cols >=
-// chunk_frames * Npad.  out: every dW (n_w floats, fused_update.cu's order),
-// then the bias grads and the 4 loss sums.  qweights: null in the bf16 mode;
-// in int8fwd the int8 forward weights, W_l^T (H_l, kp_l) and the merged
-// head's (HEAD_PAD, kp_L), kp the contraction padded to 32, with their L+1
-// scales sw (the bf16 weights then serve the backward only).
+// chunk_frames * Npad.  out: every dW (n_w floats: dW_0..dW_{L-1}, dWpv,
+// each row-major), then the bias grads and the 4 loss sums.  qweights: null
+// in the bf16 mode; in int8fwd the int8 forward weights, W_l^T (H_l, kp_l)
+// and the merged head's (HEAD_PAD, kp_L), kp the contraction padded to 32,
+// with their L+1 scales sw (the bf16 weights then serve the backward only).
+// bwd_bf16: kernel A with the bf16 backward chain.
 static int round32(int x) { return (x + 31) / 32 * 32; }
 
 extern "C" int k1_bf16_launch(
@@ -101,7 +107,7 @@ extern "C" int k1_bf16_launch(
     float neg_inv_m, float ent_scale, float val_scale, void* ws, int ws_rows,
     long long ws_cols, int chunk_frames, void* partial_a, int blocks_a, void* partial_b,
     int ranges, void* out, void* stream, int stages, const void* const* qweights,
-    const void* sw) {
+    const void* sw, int bwd_bf16) {
     const int L = num_layers;
     const bool q8 = qweights != nullptr;
     if (L < 1 || L > MAX_LAYERS || num_actions + 1 > HEAD_PAD || obs_dim > obs_dim_pad ||
@@ -186,8 +192,12 @@ extern "C" int k1_bf16_launch(
         }
         add(weights[L], HEAD_PAD, h_top, HEAD_PAD, W_DH);
         for (int l = L - 1; l >= 1; --l) add(weights[l], H[l], H[l - 1], H[l], W_DH);
-        sm_a = q8 ? plan_chain<CHAIN_INT8FWD>(pa, np, &kernel_a)
-                  : plan_chain<CHAIN_BF16>(pa, np, &kernel_a);
+        if (q8)
+            sm_a = bwd_bf16 ? plan_chain<CHAIN_INT8FWD, true>(pa, np, &kernel_a)
+                            : plan_chain<CHAIN_INT8FWD>(pa, np, &kernel_a);
+        else
+            sm_a = bwd_bf16 ? plan_chain<CHAIN_BF16, true>(pa, np, &kernel_a)
+                            : plan_chain<CHAIN_BF16>(pa, np, &kernel_a);
         if (!kernel_a) return (int)cudaErrorInvalidValue;
         err = cudaFuncSetAttribute(kernel_a, cudaFuncAttributeMaxDynamicSharedMemorySize, sm_a);
         if (err != cudaSuccess) return (int)err;

@@ -20,8 +20,8 @@
 // of the sums across cells and blocks differs.
 //
 // What bounds it.  ~1.0 ms a full-width call (T=32, N=131072, hidden (256,
-// 256)) at the tensor cores' int8 rate.  The one-kernel design
-// (fused_update.cu) took ~113 ms: the per-cell scale needs a barrier across
+// 256)) at the tensor cores' int8 rate.  The one-kernel design that
+// preceded this one took ~113 ms: the per-cell scale needs a barrier across
 // the grid between layers, which it got from L+1 launches that each
 // recomputed the forward, and each block read-modified-wrote its partial of
 // every dW for every 64-column tile (~34 GB of L2 traffic at stage 1 alone).

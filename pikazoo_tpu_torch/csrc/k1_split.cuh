@@ -1,11 +1,12 @@
 // The split design of the clipped-PPO gradient: a per-tile chain kernel
 // (kernel A) that writes the dW products' operands to a workspace, and a
 // long-K dW kernel (kernel B) that computes each dW from it.  Shared by K1's
-// bf16 and int8fwd modes (fused_update_bf16.cu), K1's int8 mode
-// (fused_update_int8.cu, which runs kernel B for the head's dW and shares
-// the int8 forward's device code below) and K4 (k4_split.cu).  The design is
-// described in fused_update_bf16.cu; what K4 and int8fwd change in kernel A
-// is described at chain_kernel.
+// bf16 and int8fwd modes, each with or without the bf16 backward chain
+// (fused_update_bf16.cu), K1's int8 mode (fused_update_int8.cu, which runs
+// kernel B for the head's dW and shares the int8 forward's device code
+// below) and K4 (k4_split.cu).  The design is described in
+// fused_update_bf16.cu; what K4, int8fwd and the bf16 backward chain change
+// in kernel A is described at chain_kernel.
 
 #pragma once
 
@@ -187,6 +188,15 @@ __device__ __forceinline__ void mma_s8_tile(int (&acc)[8][4], const WarpTile& wt
 //   tile gives it the same outputs.  relu's derivative is the same from
 //   either.  The workspace's dheads rows, the bias grads and the kernel's
 //   outputs are in K1's merged layout, so kernel B and the wrapper are K1's.
+// BB, orthogonal to the mode (CHAIN_BF16 or CHAIN_INT8FWD with the bf16
+// backward chain, bwd_bf16): the backward's epilogue in bf16 arithmetic, op
+// by op, as the JAX kernel casts it: dh_b = bf16(dh), for tanh hh =
+// bf16(h*h) and da = bf16(1 - hh) (relu: da = [h > 0]), dpre_b = bf16(dh_b *
+// da), the derivative from bf16(h) as the mode keeps it; the bias grads sum
+// the rounded dpre_b.  The head's dh product runs on the CUDA cores
+// (fma_slice) over its A+1 rows, reading Wpv from the ring stage that the
+// producers fill for it as for the mma, so the stream, the ring's order, the
+// barriers and the shared-memory plan are the mode's own.
 enum { CHAIN_BF16 = 0, CHAIN_INT8FWD = 1, CHAIN_K4 = 2 };
 
 // A product's weights: W_FWD W (K, M) bf16 row-major, the product W^T act;
@@ -289,14 +299,50 @@ __device__ __forceinline__ void mma_slice(float (&acc)[8][4], const WarpTile& wt
     }
 }
 
+// The warp's share of the same product over rows k0..k0+n of act on the CUDA
+// cores: each entry the thread owns in the mma's C layout (rows m0+g and
+// m0+g+8, columns n0+8j+2tg and +1) adds its products one row of act after
+// another with round-to-nearest FMAs, w (M x n) bf16 [m][k] (row stride
+// ldw).  The bf16 chain's head dh takes it: on the tensor cores its A+1 = 19
+// terms, which cancel (the policy rows of dheads sum to ~0 over the actions),
+// were summed by one mma that rounds toward zero, by far more than an f32
+// ulp of the result; the chain rounds dh to bf16 next, and that bias flipped
+// the roundings one way: K1 bwd_bf16 sat 3.9e-3 (worst grad leaf, relative
+// L2) from a float64 reference at full width against its plain version's
+// 1.3e-4, and 1.6e-4 with this product (measured on an H100 in the
+// one-kernel design that preceded this one).  The f32 chain rounds later and
+// its grads did not move, so it keeps the tensor cores.
+__device__ __forceinline__ void fma_slice(float (&acc)[8][4], const WarpTile& wt, const bf16* w,
+                                          int ldw, const bf16* act, int k0, int n) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+    const bf16* w_lo = w + (wt.m0 + g) * ldw;
+    const bf16* w_hi = w_lo + 8 * ldw;
+    for (int k = 0; k < n; ++k) {
+        const float a0 = __bfloat162float(w_lo[k]), a1 = __bfloat162float(w_hi[k]);
+        const bf16* row = act + (k0 + k) * LDH + wt.n0 + 2 * tg;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            if (j < wt.nb) {
+                const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + 8 * j));
+                acc[j][0] = __fmaf_rn(a0, b.x, acc[j][0]);
+                acc[j][1] = __fmaf_rn(a0, b.y, acc[j][1]);
+                acc[j][2] = __fmaf_rn(a1, b.x, acc[j][2]);
+                acc[j][3] = __fmaf_rn(a1, b.y, acc[j][3]);
+            }
+        }
+    }
+}
+
 // Stream the product's weight slices through the ring and run the warp's
 // mmas; q is the block's running slice count.  T = float: a bf16 product,
 // act bf16 [k][column] (LDH); T = int: an int8 product, act int8
-// [column][k] (p.lda bytes), exact int32 sums.
+// [column][k] (p.lda bytes), exact int32 sums.  cuda_rows > 0: a W_DH
+// product on the CUDA cores (fma_slice) over the first cuda_rows rows of act
+// (the rest are zero); the weight stream is the same.
 template <int NST, int KS, typename T>
 __device__ __forceinline__ void product(const ParamsA& p, const Prod& pr, bf16* ring, int& q,
                                         int q_end, const void* act, T (&acc)[8][4],
-                                        const WarpTile& wt) {
+                                        const WarpTile& wt, int cuda_rows = 0) {
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -320,7 +366,9 @@ __device__ __forceinline__ void product(const ParamsA& p, const Prod& pr, bf16* 
                            min(2 * KS, pr.K - k0));
             } else {
                 const int k0 = s * KS, d = min(KS, pr.K - k0);
-                if (pr.kind == W_FWD)
+                if (cuda_rows > 0)
+                    fma_slice(acc, wt, w, KS + 8, (const bf16*)act, k0, min(d, cuda_rows - k0));
+                else if (pr.kind == W_FWD)
                     mma_slice<true>(acc, wt, w, pr.M + 8, (const bf16*)act, k0, d);
                 else
                     mma_slice<false>(acc, wt, w, KS + 8, (const bf16*)act, k0, d);
@@ -371,8 +419,20 @@ __device__ __forceinline__ void load_rows(bf16* xs, const bf16* src, int F, int 
     }
 }
 
-template <int MODE, int NST, int KS>
+// BB's dpre_b of an f32 dh and the bf16 activation h (as f32).
+__device__ __forceinline__ float bf16_round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ float dpre_bf16(float dh, float h, int relu) {
+    const float da = relu ? (h > 0.0f ? 1.0f : 0.0f)
+                          : bf16_round(__fsub_rn(1.0f, bf16_round(__fmul_rn(h, h))));
+    return bf16_round(__fmul_rn(bf16_round(dh), da));
+}
+
+template <int MODE, bool BB, int NST, int KS>
 __global__ void __launch_bounds__(A_THREADS, 1) chain_kernel(const __grid_constant__ ParamsA p) {
+    static_assert(!BB || MODE != CHAIN_K4, "K4 has no bf16 backward chain");
     constexpr int HR = MODE == CHAIN_K4 ? HEAD_SPLIT : HEAD_PAD;  // the head's rows
     extern __shared__ __align__(128) unsigned char smem[];
     bf16* xs = (bf16*)(smem + p.sm_x);
@@ -588,13 +648,14 @@ __global__ void __launch_bounds__(A_THREADS, 1) chain_kernel(const __grid_consta
         row_sums<COLS>(closs, COLS, 4, lacc);
 
         // ---- backward: dh_l = W_{l+1} . bf16(dpre_{l+1}) (the head: Wpv .
-        // bf16(dheads)), then dpre_l = dh_l * act'(h_l) on registers: its f32
-        // row sums are the bias grads, bf16(dpre_l) replaces h_l.
+        // bf16(dheads)), then dpre_l = dh_l * act'(h_l) on registers (BB: in
+        // bf16, dpre_bf16): its f32 row sums are the bias grads,
+        // bf16(dpre_l) replaces h_l.
         for (int i = L + 1, l = L - 1; l >= 0; ++i, --l) {
             const Prod& pr = p.prod[i];
             const bf16* right = i == L + 1 ? dhb : (const bf16*)(smem + p.sm_h[l + 1]);
             const WarpTile wt = warp_tile(pr.M);
-            product<NST, KS>(p, pr, ring, q, q_end, right, acc, wt);
+            product<NST, KS>(p, pr, ring, q, q_end, right, acc, wt, BB && i == L + 1 ? A + 1 : 0);
             boff -= pr.M;
             bf16* h = (bf16*)(smem + p.sm_h[l]);
             if (wt.active) {
@@ -608,12 +669,18 @@ __global__ void __launch_bounds__(A_THREADS, 1) chain_kernel(const __grid_consta
                         __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(h + r * LDH + c);
                         const float2 hf = keep ? __ldcg(hk + (l * 16 + j * 2 + hh) * (32 * A_WARPS))
                                                : __bfloat1622float2(*hp);
-                        const float da0 = p.relu ? (hf.x > 0.0f ? 1.0f : 0.0f)
-                                                 : __fsub_rn(1.0f, __fmul_rn(hf.x, hf.x));
-                        const float da1 = p.relu ? (hf.y > 0.0f ? 1.0f : 0.0f)
-                                                 : __fsub_rn(1.0f, __fmul_rn(hf.y, hf.y));
-                        const float d0 = __fmul_rn(acc[j][2 * hh], da0);
-                        const float d1 = __fmul_rn(acc[j][2 * hh + 1], da1);
+                        float d0, d1;
+                        if constexpr (BB) {
+                            d0 = dpre_bf16(acc[j][2 * hh], hf.x, p.relu);
+                            d1 = dpre_bf16(acc[j][2 * hh + 1], hf.y, p.relu);
+                        } else {
+                            const float da0 = p.relu ? (hf.x > 0.0f ? 1.0f : 0.0f)
+                                                     : __fsub_rn(1.0f, __fmul_rn(hf.x, hf.x));
+                            const float da1 = p.relu ? (hf.y > 0.0f ? 1.0f : 0.0f)
+                                                     : __fsub_rn(1.0f, __fmul_rn(hf.y, hf.y));
+                            d0 = __fmul_rn(acc[j][2 * hh], da0);
+                            d1 = __fmul_rn(acc[j][2 * hh + 1], da1);
+                        }
                         rs[hh] += d0;
                         rs[hh] += d1;
                         *hp = __floats2bfloat162_rn(d0, d1);
@@ -666,9 +733,10 @@ __global__ void __launch_bounds__(A_THREADS, 1) chain_kernel(const __grid_consta
 // three stages, else two stages of 32.  The products (pa.prod[0..np)) and
 // pa's widths are set; this sets the sm_* offsets, the slices and the stage
 // size, and returns the kernel (nullptr if nothing fits) and its bytes.
+// BB picks the instance with the bf16 backward chain (the same plan).
 typedef void (*ChainKernel)(const ParamsA);
 
-template <int MODE>
+template <int MODE, bool BB = false>
 int plan_chain(ParamsA& pa, int np, ChainKernel* kernel) {
     constexpr int HR = MODE == CHAIN_K4 ? HEAD_SPLIT : HEAD_PAD;
     const int L = pa.L;
@@ -700,8 +768,8 @@ int plan_chain(ParamsA& pa, int np, ChainKernel* kernel) {
     pa.sm_rsum = take(256 * 4);
     pa.sm_ring = sm;
     const struct { int nst, ks; ChainKernel kernel; } plans[] = {
-        {3, 64, chain_kernel<MODE, 3, 64>}, {3, 32, chain_kernel<MODE, 3, 32>},
-        {2, 32, chain_kernel<MODE, 2, 32>}};
+        {3, 64, chain_kernel<MODE, BB, 3, 64>}, {3, 32, chain_kernel<MODE, BB, 3, 32>},
+        {2, 32, chain_kernel<MODE, BB, 2, 32>}};
     for (const auto& plan : plans) {
         int stage_bytes = 0;
         for (int i = 0; i < np; ++i) {
@@ -878,8 +946,8 @@ __global__ void __launch_bounds__(B_THREADS) dw_kernel(const __grid_constant__ P
 // Kernel B's products for a chain's workspace: dW_l = below_l .
 // bf16(dpre_l)^T (below_0 the observations from obs, or, with row_x >= 0,
 // x^T from the workspace) and dWpv = bf16(h_top) . bf16(dheads)^T, every
-// dW in fused_update.cu's order (n_w floats).  Returns false if the tiles
-// do not fit.
+// dW one after another (n_w floats: dW_0..dW_{L-1}, dWpv).  Returns false
+// if the tiles do not fit.
 inline bool plan_dw(ParamsB& pb, bf16* ws, long long ws_cols, const int* H, int L, int F, int Fp,
                     long long row_x, const long long* row_h, long long row_dh,
                     const long long* row_dp) {

@@ -1,9 +1,9 @@
-// Device code shared by the clipped-PPO gradient kernels: K1's one-kernel
-// design (fused_update.cu), the split design (k1_split.cuh: K1's bf16,
-// int8fwd and int8 modes and K4) and the probe kernels.  Each holds a tile of
+// Device code shared by the clipped-PPO gradient kernels: the split design
+// (k1_split.cuh: K1's modes and K4, and fused_update_int8.cu) and the probe
+// kernels (fm_roofline.cu, fm_kernel_probe.cu).  Each holds a tile of
 // columns (K4: of rows) in shared memory with the batch on the fast axis, so
-// the bias-gradient row sums, the per-column loss and the products of the
-// one-kernel design are the same code.
+// the bias-gradient row sums, the per-column loss and the probes' WMMA
+// products are the same code.
 
 #pragma once
 
@@ -89,28 +89,10 @@ __device__ void gemm(int M, int N, int K, const bf16* A, int lda,
 }
 
 // ---------------------------------------------------------------------------
-// int8 products on the tensor cores: mma.sync m16n8k32, s8 x s8 -> s32.
-//
-// D (M x N) = float(A . B) * scale (S8_STORE) or D += that (S8_ADD), with
-// A (m, k) = A[m * sam + k * sak] and B (k, n) = B[k * sbk + n * sbn] int8
-// in any layout, shared or global.  The int32 sums are exact, so one
-// dequantising multiply per output reproduces an integer product followed
-// by its scale.  M % 16 == 0, N % 8 == 0, K % 4 == 0; k >= K reads as 0.
-// Each thread gathers its fragment four bytes at a time: one 32-bit load
-// where k is the fast axis (stride 1, 4-byte aligned rows), else four byte
-// loads.
-enum { S8_STORE = 0, S8_ADD = 1 };
-
-__device__ __forceinline__ uint32_t pack4(const int8_t* p, int stride, int k, int K) {
-    if (k >= K) return 0u;
-    if (stride == 1) return *reinterpret_cast<const uint32_t*>(p + k);
-    uint32_t v = 0u;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-        v |= (uint32_t)(uint8_t)p[(size_t)(k + i) * stride] << (8 * i);
-    return v;
-}
-
+// int8 products on the tensor cores: d += a . b on mma.sync m16n8k32, s8 x s8
+// -> s32 (exact sums).  Fragment layouts (PTX ISA): A rows g and g+8, k
+// 4tg.. and 16+4tg..; B column g, the same k; C rows g (d0, d1) and g+8 (d2,
+// d3), columns 2tg and 2tg+1.
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {
     asm volatile(
@@ -118,54 +100,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
         : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <int OUT>
-__device__ void gemm_s8(int M, int N, int K, const int8_t* A, int sam, int sak,
-                        const int8_t* B, int sbk, int sbn, float scale, float* D,
-                        int ldd) {
-    const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-    const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
-    const int mt = M >> 4, nstrips = (N + 31) >> 5;
-    for (int job = warp; job < mt * nstrips; job += nwarps) {
-        const int m0 = (job / nstrips) * 16, n0 = (job % nstrips) * 32;
-        const int nt = min(4, (N - n0) >> 3);
-        int acc[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[j][i] = 0;
-        const int8_t* a_lo = A + (size_t)(m0 + g) * sam;
-        const int8_t* a_hi = A + (size_t)(m0 + g + 8) * sam;
-        for (int k0 = 0; k0 < K; k0 += 32) {
-            // Fragment layout of m16n8k32 (PTX ISA): A rows g and g+8, k
-            // tg*4..+3 and 16+tg*4..+3; B column g, the same k.
-            const int ka = k0 + tg * 4, kb = ka + 16;
-            const uint32_t a[4] = {pack4(a_lo, sak, ka, K), pack4(a_hi, sak, ka, K),
-                                   pack4(a_lo, sak, kb, K), pack4(a_hi, sak, kb, K)};
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                if (j < nt) {
-                    const int8_t* bp = B + (size_t)(n0 + j * 8 + g) * sbn;
-                    const uint32_t b[2] = {pack4(bp, sbk, ka, K), pack4(bp, sbk, kb, K)};
-                    mma_s8(acc[j], a, b);
-                }
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            if (j < nt) {
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                    // D fragment: rows g (i < 2) and g+8, columns tg*2 + (i & 1).
-                    const int r = m0 + g + (i >> 1) * 8, c = n0 + j * 8 + tg * 2 + (i & 1);
-                    const float v = __fmul_rn((float)acc[j][i], scale);
-                    float* d = D + (size_t)r * ldd + c;
-                    *d = OUT == S8_ADD ? __fadd_rn(*d, v) : v;
-                }
-            }
-        }
-    }
 }
 
 // acc[r] += the sum of row r of a (rows x NCOL) f32 tile with row stride ld:

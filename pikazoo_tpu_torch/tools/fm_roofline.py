@@ -4,10 +4,11 @@ the card.
 Counterpart of the JAX package's ``tools/fm_roofline.py``: K1's eight
 products with the loss and every elementwise step stripped to bare casts
 (no bias, no activation; the upstream gradient is the rounded logits), in
-K1's own design (``csrc/fm_roofline.cu``: K1's 64-column tile, its WMMA
-products and its per-block partials): the floor of the one-kernel design
-of ``csrc/fused_update.cu``, which K1's int8 and bf16-chain modes still run.
-K1's bf16 mode now runs the split design of ``csrc/fused_update_bf16.cu``,
+K1's first, one-kernel design (``csrc/fm_roofline.cu``: a 64-column tile,
+WMMA products and per-block partials of every dW).  It stays a port of the
+JAX tool's products floor; no mode of K1 runs that design any more (every
+mode runs the split kernels of ``csrc/fused_update_bf16.cu`` or
+``csrc/fused_update_int8.cu``), so it stands for none of them.  K1 bf16 is
 timed beside it.
 
     python3 -m pikazoo_tpu_torch.tools.fm_roofline

@@ -9,10 +9,10 @@ observations feature-major ``(T, F, 2B)`` bf16, as the rollout stores them;
 K4 takes it flattened to rows, observations ``(M, F)`` bf16.
 
 A CUDA minibatch runs hand-written Hopper kernels (for K1
-``csrc/fused_update_bf16.cu`` in the bf16 and int8fwd modes,
-``csrc/fused_update_int8.cu`` in the int8 mode and ``csrc/fused_update.cu``
-with the bf16 backward chain; ``csrc/k4_split.cu`` for K4; built by
-``pikazoo_tpu_torch._build`` at first use); a CPU one runs the plain PyTorch
+``csrc/fused_update_bf16.cu`` in the bf16 and int8fwd modes, with or without
+the bf16 backward chain, and ``csrc/fused_update_int8.cu`` in the int8 mode;
+``csrc/k4_split.cu`` for K4; built by ``pikazoo_tpu_torch._build`` at first
+use); a CPU one runs the plain PyTorch
 version (:func:`fused_ppo_grads_fm_plain`, :func:`fused_ppo_grads_rm_plain`).
 On CUDA the kernel launches or the call raises: there is no fallback.
 
@@ -31,7 +31,10 @@ modes, as the JAX kernel's branches:
 
 - ``bwd_bf16=True``: the hidden gradient chain in bf16 arithmetic
   (``dh_b = bf16(dot)``, ``dpre_b = dh_b * (1 - h*h)`` op by op in bf16, bias
-  grads the f32 sums of ``dpre_b``).
+  grads the f32 sums of ``dpre_b``), after the bf16 or the int8fwd forward.
+  It runs as the bf16 mode's two kernels, kernel A with the bf16 chain in its
+  backward epilogue and the head's ``dh`` on the CUDA cores
+  (``k1_chain_plain(..., bwd_bf16=True)``).
 - ``quant="int8fwd"``: the forward products in int8 (weights quantised per
   tensor from the f32 params, activations with the static scale 127), the
   bf16 of each f32 activation kept for the stock bf16 backward, which uses the
@@ -69,11 +72,10 @@ import torch
 from pikazoo_tpu_torch import _build
 from pikazoo_tpu_torch.train.networks import BF16, Params, dense_layers
 
-SOURCES = ("fused_update.cu",)
 SOURCES_BF16 = ("fused_update_bf16.cu",)
 SOURCES_K4 = ("k4_split.cu",)
 SOURCES_INT8 = ("fused_update_int8.cu",)
-COLS = 64        # env columns per tile of K1 (both sources)
+COLS = 64        # env columns per tile of K1's and K4's chain kernels
 DW_TILE = 128    # output rows and columns of a tile of K1 bf16's dW kernel
 # Workspace columns of one chunk of K1's bf16 mode (whole frames, at least
 # one): ~277 MB at hidden (256, 256).
@@ -88,7 +90,6 @@ MAX_LAYERS = 4   # hidden layers the kernels take
 MAX_WIDTH = 256  # widest hidden layer the kernels take
 PLAIN_COLS = 16384  # columns (rows for K4) per chunk of the plain versions
 QUANT_MODES = ("none", "int8", "int8fwd")
-QUANT_CODE = {"none": 0, "int8fwd": 1, "int8": 2}
 CELL_COLS = 1024    # the widest column cell of the int8 mode's dynamic scale
 S_IN = 1.0 / 127.0  # the static dequant scale of int8 activations
 # The widest int8 cell whose integer-valued f32 products are exact:
@@ -244,13 +245,20 @@ def _cell_dot(below: torch.Tensor, dp_q: torch.Tensor, scale: torch.Tensor,
     return (prod * scale[:, None, None]).sum(dim=0)
 
 
-def _dpre_chain(dh: torch.Tensor, hs, wf, activation: str):
-    """The bf16 backward down the hidden layers from the head's ``dh``:
+def _dpre_chain(dh: torch.Tensor, hs, wf, activation: str, bwd_bf16: bool = False):
+    """The backward down the hidden layers from the head's f32 ``dh``:
     yields ``(l, dpre, dpre_b)`` for l = L-1 .. 0, with ``dpre = dh *
-    act'(h_l)`` in f32 and ``dh_{l-1} = W_l . bf16(dpre)``."""
+    act'(h_l)`` in f32, ``dpre_b`` its bf16 and ``dh_{l-1} = W_l . dpre_b``.
+    With ``bwd_bf16`` the chain runs in bf16 arithmetic, op by op: ``dh_b =
+    bf16(dh)``, ``dpre_b = dh_b * act'(bf16(h_l))`` with each op rounded to
+    bf16, and ``dpre`` is ``dpre_b`` (the bias grads sum the rounded
+    values)."""
     for l in range(len(hs) - 1, -1, -1):
-        dpre = dh * _dact(hs[l], activation)
-        dpre_b = dpre.to(BF16).float()
+        if bwd_bf16:
+            dpre = dpre_b = (dh.to(BF16) * _dact(hs[l].to(BF16), activation)).float()
+        else:
+            dpre = dh * _dact(hs[l], activation)
+            dpre_b = dpre.to(BF16).float()
         yield l, dpre, dpre_b
         if l > 0:
             dh = torch.matmul(wf[l], dpre_b)
@@ -298,14 +306,16 @@ def _plain_net(w, b, L: int, quant: str, activation: str):
 
 
 class K1Chain(NamedTuple):
-    """What K1's bf16 and int8fwd modes and K4 compute before their dW
-    products (kernel A of ``csrc/fused_update_bf16.cu`` and of
-    ``csrc/k4_split.cu``): the products' operands at the function's rounding
-    points, each (rows, T, N) bf16 (K4: T = 1, N = M rows), and the f32
-    sums.  ``hs[l]`` is bf16(h_l), ``dheads`` bf16(dheads) (A+1 rows: the
-    logits', then the value's), ``dpres[l]`` bf16(dpre_l); ``db[l]`` and
-    ``dbpv`` are the f32 row sums of the unrounded f32 ``dpre_l`` and
-    ``dheads``; ``sums`` the 4 loss sums."""
+    """What K1's bf16 and int8fwd modes (with or without the bf16 backward
+    chain) and K4 compute before their dW products (kernel A of
+    ``csrc/fused_update_bf16.cu`` and of ``csrc/k4_split.cu``): the
+    products' operands at the function's rounding points, each (rows, T, N)
+    bf16 (K4: T = 1, N = M rows), and the f32 sums.  ``hs[l]`` is bf16(h_l),
+    ``dheads`` bf16(dheads) (A+1 rows: the logits', then the value's),
+    ``dpres[l]`` bf16(dpre_l); ``db[l]`` and ``dbpv`` are the f32 row sums of
+    the unrounded f32 ``dpre_l`` (with ``bwd_bf16``: of the bf16 ``dpre_b``
+    that the chain computes) and of the f32 ``dheads``; ``sums`` the 4 loss
+    sums."""
     hs: List[torch.Tensor]
     dheads: torch.Tensor
     dpres: List[torch.Tensor]
@@ -319,12 +329,14 @@ def k1_chain_plain(params: Params, obs: torch.Tensor, action: torch.Tensor,
                    adv_norm: torch.Tensor, target: torch.Tensor, *,
                    num_actions: int, activation: str, clip_eps: float,
                    value_coef: float, entropy_coef: float,
-                   total_rows: int = 0, quant: str = "none") -> K1Chain:
+                   total_rows: int = 0, quant: str = "none",
+                   bwd_bf16: bool = False) -> K1Chain:
     """The plain version of kernel A of K1's bf16 mode (``quant="none"``) or
-    int8fwd mode (``quant="int8fwd"``: the int8 forward, then the same bf16
+    int8fwd mode (``quant="int8fwd"``: the int8 forward, then the same
     backward on the bf16 weights), on any device: the forward, the loss and
-    ``dheads``, and the backward chain down to ``dpre_0``, a frame and
-    ``PLAIN_COLS`` columns at a time."""
+    ``dheads``, and the backward chain down to ``dpre_0`` (with ``bwd_bf16``
+    in bf16 arithmetic, :func:`_dpre_chain`), a frame and ``PLAIN_COLS``
+    columns at a time."""
     _, L, w, b = dense_layers(params)
     if quant not in ("none", "int8fwd"):
         raise ValueError(f"kernel A runs quant 'none' or 'int8fwd', not {quant!r}")
@@ -357,7 +369,7 @@ def k1_chain_plain(params: Params, obs: torch.Tensor, action: torch.Tensor,
             dheads_out[:, t, cols] = dheads_b
             dbpv += dheads.sum(dim=1)
             for l, dpre, dpre_b in _dpre_chain(torch.matmul(wpv, dheads_b), hs, wf,
-                                               activation):
+                                               activation, bwd_bf16):
                 dpres_out[l][:, t, cols] = dpre_b
                 db[l] += dpre.sum(dim=1)
     return K1Chain(hs_out, dheads_out, dpres_out, db, dbpv, sums)
@@ -386,8 +398,9 @@ def k1_dw_plain(chain: K1Chain, obs: torch.Tensor):
 
 def _plain_bf16(params: Params, obs, action, logp_old, value_old, adv_norm, target, *,
                 num_actions: int, total_rows: int, **kw):
-    """K1's bf16 or int8fwd mode (``kw["quant"]``) as its two kernels
-    compute it: the chain, then the dW products, a frame at a time."""
+    """K1's bf16 or int8fwd mode (``kw["quant"]``, with or without
+    ``kw["bwd_bf16"]``) as its two kernels compute it: the chain, then the dW
+    products, a frame at a time."""
     names, L, _, _ = dense_layers(params)
     total_rows = total_rows or obs.shape[0] * obs.shape[2]
     total = None   # every dW, every bias grad, dWpv, dbpv, the loss sums
@@ -571,55 +584,14 @@ def fused_ppo_grads_fm_plain(params: Params, obs: torch.Tensor,
     exact, see ``EXACT_F32_CELL``).  It walks the minibatch a frame and
     ``PLAIN_COLS`` columns at a time (whole cells in the int8 mode), so it
     fits on the card at full width."""
-    names, L, w, b = dense_layers(params)
-    check_mode(quant, activation, L)
+    check_mode(quant, activation, dense_layers(params)[1])
     kw = dict(num_actions=num_actions, activation=activation, clip_eps=clip_eps,
               value_coef=value_coef, entropy_coef=entropy_coef, total_rows=total_rows)
     if quant == "int8":
         return _plain_int8(params, obs, action, logp_old, value_old, adv_norm, target, **kw)
-    if not bwd_bf16:
-        # bf16 and int8fwd run as K1 bf16's split kernels: their stages composed.
-        return _plain_bf16(params, obs, action, logp_old, value_old, adv_norm, target,
-                           quant=quant, **kw)
-    # The bf16 backward chain (bwd_bf16), after the bf16 or the int8fwd forward.
-    f32 = torch.float32
-    t_mb, n = action.shape
-    inv_m = 1.0 / (total_rows or t_mb * n)
-    A = num_actions
-    wf, bf, wpv, bpv, forward = _plain_net(w, b, L, quant, activation)
-    loss_kw = dict(inv_m=inv_m, clip_eps=clip_eps, value_coef=value_coef,
-                   entropy_coef=entropy_coef)
-
-    dw = [torch.zeros_like(x) for x in wf]
-    db = [torch.zeros_like(x) for x in bf]
-    dwpv = torch.zeros_like(wpv)
-    dbpv = torch.zeros_like(bpv)
-    sums = torch.zeros(4, dtype=f32, device=obs.device)
-    for t in range(t_mb):
-        for c0 in range(0, n, PLAIN_COLS):
-            cols = slice(c0, min(n, c0 + PLAIN_COLS))
-            x = obs[t, :, cols].float()
-            hs, heads = forward(x)                                   # heads (A+1, C)
-            chunk_sums, dlogits, dvalue = _loss_and_dheads(
-                heads[:A], heads[A], action[t, cols], logp_old[t, cols],
-                adv_norm[t, cols], value_old[t, cols], target[t, cols], **loss_kw)
-            sums += chunk_sums
-            dheads = torch.cat([dlogits, dvalue[None]])              # (A+1, C)
-            dheads_b = dheads.to(BF16).float()
-            dbpv += dheads.sum(dim=1)
-
-            dwpv += torch.matmul(hs[-1], dheads_b.t())
-            # The hidden chain in bf16 arithmetic, op by op.
-            dh_b = torch.matmul(wpv, dheads_b).to(BF16)
-            for l in range(L - 1, -1, -1):
-                dpre_b = dh_b * _dact(hs[l].to(BF16), activation)
-                below = hs[l - 1] if l > 0 else x
-                dw[l] += torch.matmul(below, dpre_b.float().t())
-                db[l] += dpre_b.float().sum(dim=1)
-                if l > 0:
-                    dh_b = torch.matmul(wf[l], dpre_b.float()).to(BF16)
-    grads = _merged_grads(names, dw, db, dwpv, dbpv, A)
-    return grads, _loss_vector(sums, inv_m, value_coef, entropy_coef)
+    # The other modes run as K1 bf16's split kernels: their stages composed.
+    return _plain_bf16(params, obs, action, logp_old, value_old, adv_norm, target,
+                       quant=quant, bwd_bf16=bwd_bf16, **kw)
 
 
 def k4_chain_plain(params: Params, obs: torch.Tensor, action: torch.Tensor,
@@ -714,24 +686,6 @@ _PTR = ctypes.c_void_p
 
 
 @functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    lib = _build.load("fused_update", SOURCES)
-    fn = lib.fused_ppo_grads_fm_launch
-    fn.argtypes = ([_PTR] * 6                       # obs and the 5 scalars
-                   + [_PTR] * 2                     # weight and bias pointer arrays
-                   + [_PTR]                         # hidden widths
-                   + [ctypes.c_int] * 7             # L, F, Fp, A, relu, T, N
-                   + [ctypes.c_float] * 4           # clip, -inv_m, ent, val scales
-                   + [_PTR, ctypes.c_int, ctypes.c_int]  # partial, G, stride
-                   + [_PTR, _PTR]                   # out, stream
-                   + [ctypes.c_int] * 2             # quant, bwd_bf16
-                   + [_PTR] * 3                     # int8 weights, scales, cell maxima
-                   + [ctypes.c_int])                # cell columns
-    fn.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=1)
 def _library_bf16() -> ctypes.CDLL:
     lib = _build.load("fused_update_bf16", SOURCES_BF16)
     fn = lib.k1_bf16_launch
@@ -742,7 +696,8 @@ def _library_bf16() -> ctypes.CDLL:
                    + [_PTR, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]  # workspace
                    + [_PTR, ctypes.c_int, _PTR, ctypes.c_int]  # partials of A and B
                    + [_PTR, _PTR, ctypes.c_int]     # out, stream, stages
-                   + [_PTR, _PTR])                  # int8fwd: int8 weights, scales
+                   + [_PTR, _PTR]                   # int8fwd: int8 weights, scales
+                   + [ctypes.c_int])                # bwd_bf16
     fn.restype = ctypes.c_int
     return lib
 
@@ -812,22 +767,6 @@ def _check_net(w, L: int, A: int, head_pad: int, activation: str) -> List[int]:
     return hidden
 
 
-def _partials(device, widths, tiles: int, shape):
-    """Per-block partials and the reduced output of ``csrc/fused_update.cu``:
-    every dW, then every bias grad, then the 4 loss sums, a block's row
-    padded to 64 floats."""
-    h_top = widths[-1]
-    n_w = sum(i * o for i, o in zip(widths[:-1], widths[1:])) + h_top * HEAD_PAD
-    n_b = sum(widths[1:]) + HEAD_PAD
-    stride = -(-(n_w + n_b + 4) // 64) * 64
-    if tiles == 0:
-        raise ValueError(f"empty minibatch: obs is {tuple(shape)}")
-    blocks = min(tiles, torch.cuda.get_device_properties(device).multi_processor_count)
-    partial = torch.empty((blocks, stride), dtype=torch.float32, device=device)
-    out = torch.empty(stride, dtype=torch.float32, device=device)
-    return partial, out, blocks, stride
-
-
 def _unpack(out, widths, head_pad: int, f: int):
     """The reduced output -> (dw list, db list, head dW (H, pad), head db
     (pad,), loss sums (4,))."""
@@ -892,8 +831,8 @@ def _bf16_call(obs, hidden, num_actions: int, ws, chunk: int, stages: int, net=N
     ``ws`` (rows, chunk * Npad) bf16, ``chunk`` frames at a time: kernel A,
     kernel B or both (``stages``).  ``net``, kernel A's inputs: (weights,
     biases, int32 action, the 4 per-column scalars, relu, the int8fwd
-    forward's (int8 weights, scales) or None, clip, -1/M, entropy and value
-    scales).  Returns ``out``: every dW, then the bias grads and the 4 loss
+    forward's (int8 weights, scales) or None, bwd_bf16, clip, -1/M, entropy
+    and value scales).  Returns ``out``: every dW, then the bias grads and the 4 loss
     sums, as :func:`_unpack` reads them."""
     t_mb, f, n = obs.shape
     device = obs.device
@@ -914,9 +853,9 @@ def _bf16_call(obs, hidden, num_actions: int, ws, chunk: int, stages: int, net=N
     q_ptrs = sw = None
     if net is None:
         w_ptrs = b_ptrs = None
-        ptrs, relu, scales = [None] * 5, 0, (0.0,) * 4
+        ptrs, relu, bwd_bf16, scales = [None] * 5, 0, 0, (0.0,) * 4
     else:
-        weights, biases, action, scalars, relu, int8fwd, *scales = net
+        weights, biases, action, scalars, relu, int8fwd, bwd_bf16, *scales = net
         w_ptrs, _w = _ptr_array(weights)
         b_ptrs, _b = _ptr_array(biases)
         if int8fwd is not None:
@@ -929,7 +868,7 @@ def _bf16_call(obs, hidden, num_actions: int, ws, chunk: int, stages: int, net=N
             obs.data_ptr(), *ptrs, w_ptrs, b_ptrs, ctypes.cast(dims, _PTR), len(hidden), f,
             widths[0], num_actions, relu, t_mb, n, *scales, ws.data_ptr(), ws.shape[0],
             ws.shape[1], chunk, partial_a.data_ptr(), blocks_a, partial_b.data_ptr(), ranges,
-            out.data_ptr(), stream, stages, q_ptrs, sw)
+            out.data_ptr(), stream, stages, q_ptrs, sw, bwd_bf16)
     if err != 0:
         raise RuntimeError(f"K1 bf16 kernel launch failed: CUDA error {err}")
     _count(fused_ppo_grads_fm, stages, -(-t_mb // chunk), "bf16")
@@ -946,10 +885,11 @@ def _count(fn, stages: int, chunks: int, prefix: str) -> None:
 
 def _run_bf16(params: Params, obs, action, scalars, *, num_actions: int, activation: str,
               clip_eps: float, value_coef: float, entropy_coef: float, inv_m: float,
-              chunk: int, stages: int, quant: str = "none"):
+              chunk: int, stages: int, quant: str = "none", bwd_bf16: bool = False):
     """Pad the net (and for ``quant="int8fwd"`` quantise its forward),
-    allocate a workspace of ``chunk`` frames and launch.  Returns (names,
-    hidden widths, out, workspace)."""
+    allocate a workspace of ``chunk`` frames and launch, kernel A with the
+    bf16 backward chain if ``bwd_bf16``.  Returns (names, hidden widths,
+    out, workspace)."""
     names, L, w, b = dense_layers(params)
     hidden = _check_net(w, L, num_actions, HEAD_PAD, activation)
     t_mb, f, n = obs.shape
@@ -962,8 +902,8 @@ def _run_bf16(params: Params, obs, action, scalars, *, num_actions: int, activat
         int8fwd = (fwd, sw)
     ws = torch.empty((_ws_rows(hidden)[-1], chunk * _npad(n)), dtype=BF16, device=obs.device)
     net = (weights, biases, action.to(torch.int32).contiguous(),
-           [x.contiguous() for x in scalars], int(activation == "relu"), int8fwd, clip_eps,
-           -inv_m, entropy_coef * inv_m, value_coef * inv_m)
+           [x.contiguous() for x in scalars], int(activation == "relu"), int8fwd,
+           int(bwd_bf16), clip_eps, -inv_m, entropy_coef * inv_m, value_coef * inv_m)
     return names, hidden, _bf16_call(obs, hidden, num_actions, ws, chunk, stages, net), ws
 
 
@@ -975,8 +915,9 @@ def chunk_frames(t_mb: int, n: int) -> int:
 
 def _launch_bf16(params: Params, obs, action, logp_old, value_old, adv_norm, target,
                  num_actions: int, inv_m: float, **kw):
-    """K1's bf16 or int8fwd mode (``kw["quant"]``): kernels A and B over
-    chunks of frames, then the grads dict and the loss vector."""
+    """K1's bf16 or int8fwd mode (``kw["quant"]``, with or without
+    ``kw["bwd_bf16"]``): kernels A and B over chunks of frames, then the
+    grads dict and the loss vector."""
     t_mb, f, n = obs.shape
     names, hidden, out, _ = _run_bf16(params, obs, action, (logp_old, value_old, adv_norm, target),
                                       num_actions=num_actions, inv_m=inv_m,
@@ -991,15 +932,16 @@ def k1_chain(params: Params, obs: torch.Tensor, action: torch.Tensor,
              logp_old: torch.Tensor, value_old: torch.Tensor, adv_norm: torch.Tensor,
              target: torch.Tensor, *, num_actions: int, activation: str, clip_eps: float,
              value_coef: float, entropy_coef: float, total_rows: int = 0,
-             quant: str = "none") -> K1Chain:
-    """Kernel A of K1's bf16 or int8fwd mode alone, over the whole minibatch
-    (its workspace holds every frame): the :class:`K1Chain` of
-    :func:`k1_chain_plain`, whose operands are views of the workspace.  On
-    CUDA it adds one to ``k1_chain.launches``; on the CPU it runs
-    :func:`k1_chain_plain`."""
+             quant: str = "none", bwd_bf16: bool = False) -> K1Chain:
+    """Kernel A of K1's bf16 or int8fwd mode (with or without the bf16
+    backward chain) alone, over the whole minibatch (its workspace holds
+    every frame): the :class:`K1Chain` of :func:`k1_chain_plain`, whose
+    operands are views of the workspace.  On CUDA it adds one to
+    ``k1_chain.launches``; on the CPU it runs :func:`k1_chain_plain`."""
     scalars = (logp_old, value_old, adv_norm, target)
     kw = dict(num_actions=num_actions, activation=activation, clip_eps=clip_eps,
-              value_coef=value_coef, entropy_coef=entropy_coef, quant=quant)
+              value_coef=value_coef, entropy_coef=entropy_coef, quant=quant,
+              bwd_bf16=bwd_bf16)
     if _check(obs, scalars, action).type == "cpu":
         return k1_chain_plain(params, obs, action, *scalars, total_rows=total_rows, **kw)
     if quant not in ("none", "int8fwd"):
@@ -1311,59 +1253,6 @@ k1_int8_chain.launches = 0
 k1_int8_dw.launches = 0
 
 
-def _launch(params: Params, obs, action, logp_old, value_old, adv_norm, target,
-            num_actions: int, activation: str, clip_eps: float,
-            value_coef: float, entropy_coef: float, inv_m: float,
-            quant: str = "none", bwd_bf16: bool = False):
-    """K1's modes in ``csrc/fused_update.cu`` (``bwd_bf16``, after the bf16
-    or the int8fwd forward): pad the weights to its tiles, launch, and unpack the reduced sums into a
-    grads dict and the loss vector."""
-    names, L, w, b = dense_layers(params)
-    t_mb, f, n = obs.shape
-    A = num_actions
-    hidden = _check_net(w, L, A, HEAD_PAD, activation)
-    device = obs.device
-    fp = _round16(f)
-    h_top = hidden[-1]
-    bf16_w = [x.to(BF16) for x in w]
-    quantised = quant != "none"
-    if quantised:
-        wq, sw = quantize_weights(w, L)
-        q0 = torch.zeros((fp, hidden[0]), dtype=torch.int8, device=device)
-        q0[:f] = wq[0]
-        qh = torch.zeros((h_top, HEAD_PAD), dtype=torch.int8, device=device)
-        qh[:, :A + 1] = wq[L]
-        qweights = [q0] + [x.contiguous() for x in wq[1:L]] + [qh]
-        sw = sw.contiguous()
-    weights, biases = _pad_net(bf16_w, b, L, f, A)
-
-    widths = [fp, *hidden]
-    partial, out, blocks, stride = _partials(device, widths, t_mb * -(-n // COLS), obs.shape)
-    act32 = action.to(torch.int32).contiguous()
-    scal = [x.contiguous() for x in (logp_old, value_old, adv_norm, target)]
-    obs = obs.contiguous()
-    w_ptrs, _w = _ptr_array(weights)
-    b_ptrs, _b = _ptr_array(biases)
-    q_ptrs, _q = _ptr_array(qweights) if quantised else (None, None)
-    dims = (ctypes.c_int * L)(*hidden)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _library().fused_ppo_grads_fm_launch(
-            obs.data_ptr(), act32.data_ptr(), *[x.data_ptr() for x in scal],
-            w_ptrs, b_ptrs, ctypes.cast(dims, _PTR), L, f, fp, A,
-            int(activation == "relu"), t_mb, n,
-            clip_eps, -inv_m, entropy_coef * inv_m, value_coef * inv_m,
-            partial.data_ptr(), blocks, stride, out.data_ptr(), stream,
-            QUANT_CODE[quant], int(bwd_bf16), q_ptrs,
-            sw.data_ptr() if quantised else None, None, 0)
-    if err != 0:
-        raise RuntimeError(f"fused PPO gradient kernel launch failed: CUDA error {err}")
-    fused_ppo_grads_fm.launches_by_kernel["fused_update.cu"] += 1
-    dw, db, dwpv, dbpv, sums = _unpack(out, widths, HEAD_PAD, f)
-    grads = _merged_grads(names, dw, db, dwpv, dbpv, A)
-    return grads, _loss_vector(sums, inv_m, value_coef, entropy_coef)
-
-
 def fused_ppo_grads_fm(params: Params, obs: torch.Tensor, action: torch.Tensor,
                        logp_old: torch.Tensor, value_old: torch.Tensor,
                        adv_norm: torch.Tensor, target: torch.Tensor, *,
@@ -1385,10 +1274,10 @@ def fused_ppo_grads_fm(params: Params, obs: torch.Tensor, action: torch.Tensor,
     Returns ``(grads, losses)``: f32 grads keyed like ``params`` and
     ``losses = [total, policy, value, entropy, approx_kl]`` (means).  On
     CUDA this launches ``csrc/fused_update_bf16.cu`` (the bf16 and int8fwd
-    modes: kernels A and B over chunks of frames), ``csrc/fused_update_int8.cu``
-    (the int8 mode: kernels A, S x L, Q and B over chunks of frames) or
-    ``csrc/fused_update.cu`` (the bf16 backward chain, ``bwd_bf16``) on the
-    current stream without synchronising and adds one to
+    modes, with or without ``bwd_bf16``: kernels A and B over chunks of
+    frames) or ``csrc/fused_update_int8.cu`` (the int8 mode: kernels A, S x
+    L, Q and B over chunks of frames) on the current stream without
+    synchronising and adds one to
     ``fused_ppo_grads_fm.launches`` and to
     ``launches_by_mode[mode_name(quant, bwd_bf16)]``; on the CPU it runs
     :func:`fused_ppo_grads_fm_plain`."""
@@ -1398,21 +1287,17 @@ def fused_ppo_grads_fm(params: Params, obs: torch.Tensor, action: torch.Tensor,
     if quant == "int8":
         check_int8_cells(obs.shape[2])
     kw = dict(num_actions=num_actions, activation=activation, clip_eps=clip_eps,
-              value_coef=value_coef, entropy_coef=entropy_coef, quant=quant,
-              bwd_bf16=bwd_bf16)
+              value_coef=value_coef, entropy_coef=entropy_coef)
     if device.type == "cpu":
-        return fused_ppo_grads_fm_plain(params, obs, action, *scalars,
-                                        total_rows=total_rows, **kw)
+        return fused_ppo_grads_fm_plain(params, obs, action, *scalars, total_rows=total_rows,
+                                        quant=quant, bwd_bf16=bwd_bf16, **kw)
     t_mb, _, n = obs.shape
     inv_m = 1.0 / (total_rows or t_mb * n)
-    split_kw = dict(num_actions=num_actions, activation=activation, clip_eps=clip_eps,
-                    value_coef=value_coef, entropy_coef=entropy_coef, inv_m=inv_m)
     if quant == "int8":
-        result = _launch_int8(params, obs, action, *scalars, **split_kw)
-    elif not bwd_bf16:
-        result = _launch_bf16(params, obs, action, *scalars, quant=quant, **split_kw)
+        result = _launch_int8(params, obs, action, *scalars, inv_m=inv_m, **kw)
     else:
-        result = _launch(params, obs, action, *scalars, inv_m=inv_m, **kw)
+        result = _launch_bf16(params, obs, action, *scalars, inv_m=inv_m, quant=quant,
+                              bwd_bf16=bwd_bf16, **kw)
     fused_ppo_grads_fm.launches += 1
     fused_ppo_grads_fm.launches_by_mode[mode_name(quant, bwd_bf16)] += 1
     return result
@@ -1420,16 +1305,16 @@ def fused_ppo_grads_fm(params: Params, obs: torch.Tensor, action: torch.Tensor,
 
 def zero_fm_counts() -> None:
     """Set K1's and K4's counts to 0: K1's calls, by mode, and the launches
-    of ``csrc/fused_update.cu``, of K1 bf16's kernels A and B (``bf16_chain``,
-    ``bf16_dw``: the bf16 and int8fwd modes) and of each int8 kernel
-    (``INT8_KERNELS``), a call launching each once a chunk, kernel S once a
-    chunk and layer; K4's calls and its kernels' launches (``k4_chain``,
-    ``k4_dw``)."""
+    of K1 bf16's kernels A and B (``bf16_chain``, ``bf16_dw``: the bf16 and
+    int8fwd modes, with or without the bf16 backward chain) and of each int8
+    kernel (``INT8_KERNELS``), a call launching each once a chunk, kernel S
+    once a chunk and layer; K4's calls and its kernels' launches
+    (``k4_chain``, ``k4_dw``)."""
     fused_ppo_grads_fm.launches = 0
     fused_ppo_grads_fm.launches_by_mode = {
         mode_name(q, bb): 0 for q in QUANT_MODES for bb in (False, True)}
     fused_ppo_grads_fm.launches_by_kernel = dict.fromkeys(
-        ("fused_update.cu", "bf16_chain", "bf16_dw", *INT8_KERNELS), 0)
+        ("bf16_chain", "bf16_dw", *INT8_KERNELS), 0)
     fused_ppo_grads.launches = 0
     fused_ppo_grads.launches_by_kernel = dict.fromkeys(("k4_chain", "k4_dw"), 0)
 

@@ -145,13 +145,15 @@ def test_wrapper_runs_plain_on_cpu_and_checks_inputs():
 
 
 def test_kernel_shape_limits_raise_before_launch():
-    """What the kernel cannot take raises before any launch (the checks run
-    without a card)."""
+    """What the kernels cannot take raises before any launch (the checks run
+    without a card), with and without the bf16 backward chain."""
     params, leaves = make_inputs(2, 64, "tanh")
     port = params_from_flax(jax.device_get(params))
     port["layers.0.kernel"] = torch.zeros((F, 24))   # width not a multiple of 16
     port["layers.0.bias"] = torch.zeros(24)
     port["layers.1.kernel"] = torch.zeros((24, 32))
     args = [to_torch(x) for x in leaves]
-    with pytest.raises(ValueError, match="multiples of 16"):
-        fused_update._launch(port, *args, activation="tanh", inv_m=1.0, **KW)
+    for bwd_bf16 in (False, True):
+        with pytest.raises(ValueError, match="multiples of 16"):
+            fused_update._launch_bf16(port, *args, activation="tanh", inv_m=1.0,
+                                      bwd_bf16=bwd_bf16, **KW)

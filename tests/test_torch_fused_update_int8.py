@@ -208,16 +208,19 @@ def test_wrapper_raises_on_a_cell_too_wide_for_int32():
 
 
 def test_precision_probe_anchors_match_the_source():
-    """tools/k1_precision_probe.py builds its variants by substitution in
-    csrc/fused_update.cu, which the int8 mode no longer runs: each anchor is
-    there exactly once, the int8 and bf16 rows name their own sources, and
+    """tools/k1_precision_probe.py probes every mode of K1 on its split
+    source: each mode names a source that exists, none names the deleted
+    one-kernel csrc/fused_update.cu, the modes are the wrapper's, and
     without a card the tool refuses before it builds anything."""
     from pikazoo_tpu_torch import _build
     from pikazoo_tpu_torch.tools import k1_precision_probe as probe
 
-    src = probe.probe_source()
-    assert "g_dbg" in src and "HIDDEN_DH(" in src and "HEAD_DH;" in src
-    assert probe.SPLIT == {"none": "fused_update_bf16.cu", "int8": "fused_update_int8.cu"}
-    assert all((_build.CSRC_DIR / name).is_file() for name in probe.SPLIT.values())
-    assert set(probe.SPLIT) < set(probe.MODES)
+    assert set(probe.SOURCES) == set(probe.MODES) == {
+        fu.mode_name(kw.get("quant", "none"), kw.get("bwd_bf16", False))
+        for kw in probe.MODES.values()}
+    assert set(probe.MODES) == set(fu.fused_ppo_grads_fm.launches_by_mode)
+    assert all((_build.CSRC_DIR / name).is_file() for name in probe.SOURCES.values())
+    assert "fused_update.cu" not in probe.SOURCES.values()
+    assert probe.SOURCES["int8"] == "fused_update_int8.cu"
+    assert not (_build.CSRC_DIR / "fused_update.cu").exists()
     assert probe.main([]) == 1
