@@ -8,8 +8,10 @@ and ``nvidia-smi``.  It builds every kernel of the port from the sources in
 the checkout, holds each against its plain PyTorch version on the card,
 drives the port's env paths with rule-AI and random-action seats (the eager
 ``PikaZoo.reset_batch`` / ``step_batch``, and ``fused_rollout``, many frames
-per launch), compares a card trajectory with a CPU trajectory leaf by leaf,
-and trains: the self-play PPO learner through ``make_ppo_trainer`` at full
+per launch: K3 held against its plain version from fresh resets and from a
+live mid-rally state, its landing pool's lane efficiency and its ``-Xptxas
+-v`` figures printed), compares a card trajectory with a CPU trajectory leaf
+by leaf, and trains: the self-play PPO learner through ``make_ppo_trainer`` at full
 width, its minibatch gradients in the fused kernel K1 (bf16), then in the
 row-major kernel K4 and in K1's int8, int8fwd and bf16-backward modes, each
 of those held against its plain version first; then runs the three probe
@@ -35,12 +37,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from pikazoo_tpu_torch import EnvConfig, PikaZoo, fused_rollout
+from pikazoo_tpu_torch import EnvConfig, PikaZoo, _build, fused_rollout
 from pikazoo_tpu_torch.core import fused_step, predict, predict_cuda
 from pikazoo_tpu_torch.core.predict import landing_sims_any
 from pikazoo_tpu_torch.envs import OBS_HIGH, OBS_LOW
 from pikazoo_tpu_torch.envs.pika_volley import EnvState
-from pikazoo_tpu_torch.tools import compaction_probe, fm_kernel_probe, fm_roofline
+from pikazoo_tpu_torch.tools import compaction_probe, fm_kernel_probe, fm_roofline, k3_probe
 from pikazoo_tpu_torch.tools._timing import HOLD_CYCLES
 from pikazoo_tpu_torch.tools.k1_precision_probe import float64_plain
 from pikazoo_tpu_torch.train import PPOConfig, make_ppo_trainer, ppo
@@ -101,6 +103,11 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "int32": 132 * 64 * 1.98e9}
 # Integer operations of one lane's landing-loop iteration, counted from
 # core/predict.py::_one_iteration (adds, compares, selects, abs, negations).
 LANDING_ITERATION_OPS = 28
+# Integer operations of one threefry2x32_first (csrc/fused_step.cu): the key
+# schedule's two xors, the two counter-key adds, 20 rounds of add, rotate
+# (one funnel shift on the card) and xor, and five key injections (three
+# operations each but the last, one).
+THREEFRY_OPS = 2 + 2 + 20 * 3 + 4 * 3 + 1
 
 
 def bound(nbytes: float, ops: dict):
@@ -249,11 +256,14 @@ def build_all(card: str):
 
     libraries = (predict_cuda._library, fused_step._library, fused_update._library_bf16, fused_update._library_int8, fused_update._library_k4,
                  compaction_probe._library, fm_roofline._library, fm_kernel_probe._library)
-    with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
+    with ThreadPoolExecutor(max_workers=len(libraries) + 1) as pool:
         builds = [pool.submit(timed_build, b) for b in libraries]
+        usage = pool.submit(k3_probe.instance_lines, _build.CSRC_DIR / "fused_step.cu")
         for future in builds:
             name, seconds = future.result()
             print(f"phase 2 build: {seconds:.2f} s -> {name} [{card}]")
+        for line in usage.result():
+            print(f"phase 2 ptxas fused_step.cu: {line}")
 
 
 def rows_differ(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -314,34 +324,60 @@ def fused_path(label: str, cfg: EnvConfig, batch: int, calls: int,
 
 
 def time_fused(label: str, cfg: EnvConfig, state: EnvState, card: str):
-    """CUDA-event ms of one FUSED_FRAMES-frame call from a live state, kernel
-    and plain, interleaved plain, kernel, kernel, plain.  The kernel runs in
-    place on its own buffer, so its calls continue one another.  Then its
-    bound: the packed state read and written once, and, with a computer
-    seat, the expected-landing loop's iterations that this call's frames
-    need (lane 0 of one more plain call, counted; the candidate lanes run
-    only as the AI asks for them, so they are left out of the least work).
-    The physics' own operations are not counted: the bound is that of the
-    landing loop and the state's bytes alone, below the frame's least time."""
+    """K3 from a live state (``state`` continued with phase 8's action key).
+    With a computer seat, first the hold: one FUSED_FRAMES-frame call of the
+    kernel and one of its counting instance against the plain version, all
+    NFIELDS rows bit-equal, and the landing pool's lane efficiency beside
+    the one-thread design's, estimated from the plain version's counts.
+    Then CUDA-event ms of one call, kernel and plain, interleaved plain,
+    kernel, kernel, plain (the kernel in place on its own buffer, so its
+    calls continue one another), and the bound: the packed state read and
+    written once, the landing iterations this call needs (the true ball's,
+    and for each seat that asks the candidates in its coin's order up to
+    and including the first accepted, all 6 if none is; counted on the
+    plain version) and the threefry draws (2 action draws an env-frame and
+    the site draws, the draw counters' advance).  The physics' own
+    operations are not counted.  Returns (kernel ms, plain ms, bound, max
+    |diff| of the hold)."""
     live = fused_step.pack_state(state, 1)
+    batch = live.shape[1]
+    after = fused_step.rollout_packed(live.clone(), cfg, FUSED_FRAMES)
+    err, iterations = 0, 0
+    if cfg.is_player1_computer or cfg.is_player2_computer:
+        counted = live.clone()
+        counts = fused_step.rollout_packed_counted(counted, cfg, FUSED_FRAMES)
+        want, work = k3_probe.landing_work(live, cfg, FUSED_FRAMES)
+        for name, got in (("kernel", after), ("counting instance", counted)):
+            err = max(err, rows_differ(got, want))
+            if err:
+                rows = (got != want).any(dim=1).nonzero().flatten().tolist()
+                raise AssertionError(f"fused {name} != plain from the live state [{label}]: "
+                                     f"rows {rows}, max |diff| {err}")
+        asks = work.asks.any(1)
+        print(f"phase 8 hold [{label}] from the live state: B={batch} x {FUSED_FRAMES} "
+              f"frames, kernel and counting instance == plain on all {fused_step.NFIELDS} "
+              f"rows; {int(asks.sum())} env-frames ask for candidates, at most "
+              f"{int(asks.reshape(FUSED_FRAMES, -1, 32).sum(-1).max())} of a warp's 32")
+        iterations = int(work.true_iterations.sum()) + int(work.needed.sum())
+        print(f"phase 8 pool [{label}]: {k3_probe.pool_report(counts, work)} [{card}]")
     buf = live.clone()
     kernel = lambda: fused_step.rollout_packed(buf, cfg, FUSED_FRAMES)
     plain = lambda: fused_step.rollout_packed_plain(live, cfg, FUSED_FRAMES)
     p1, k1, k2, p2 = (cuda_ms(plain, 1), cuda_ms(kernel, 5),
                       cuda_ms(kernel, 5), cuda_ms(plain, 1))
-    batch = live.shape[1]
-    iterations = 0
-    if cfg.is_player1_computer or cfg.is_player2_computer:
-        _, lanes = count_landing_iterations(plain)
-        iterations = int(lanes[0])
+    draw_counter = lambda packed: fused_step._split(packed)[3]["draw_counter"].long()
+    draws = 2 * batch * FUSED_FRAMES + int((draw_counter(after) - draw_counter(live)).sum())
     bound_ms, bound_by = bound(2 * live.numel() * 4,
-                               {"int32": iterations * LANDING_ITERATION_OPS})
+                               {"int32": iterations * LANDING_ITERATION_OPS +
+                                draws * THREEFRY_OPS})
     print(f"phase 8 time [{label}] B={batch} x {FUSED_FRAMES} frames: kernel "
           f"{k1:.4f} / {k2:.4f} ms ({batch * FUSED_FRAMES / min(k1, k2) * 1e3:.0f} "
           f"env-steps/s), plain {p1:.1f} / {p2:.1f} ms; bound {bound_ms:.4f} ms by "
-          f"{bound_by} ({iterations} expected-landing iterations; physics not counted) "
+          f"{bound_by} ({iterations} landing iterations x {LANDING_ITERATION_OPS} and "
+          f"{draws} threefry draws x {THREEFRY_OPS} int32 operations, "
+          f"{2 * live.numel() * 4} bytes; the physics' own operations not counted) "
           f"[{card}]")
-    return min(k1, k2), min(p1, p2), (bound_ms, bound_by)
+    return min(k1, k2), min(p1, p2), (bound_ms, bound_by), err
 
 
 def compare_devices(cfg: EnvConfig, label: str, seed: int):
@@ -1231,8 +1267,9 @@ def main() -> int:
                              f"{calls} calls, {landing_launches} landing launches")
     print(f"phase 8 launches: fused_rollout {fused_launches} in {calls} calls, "
           f"landing_sims_batched {landing_launches}")
-    fused_ms, fused_plain_ms, fused_bound = time_fused("AI self-play", AI_CONFIG,
-                                                       ai_state, card)
+    fused_ms, fused_plain_ms, fused_bound, hold_err = time_fused(
+        "AI self-play", AI_CONFIG, ai_state, card)
+    fused_err = max(fused_err, hold_err)
     time_fused("random actions", EnvConfig(), random_state, card)
 
     # Phase 9: K1 vs its plain version on the card, full width and ragged.

@@ -12,7 +12,8 @@ self-play data generation and AI-vs-AI rollouts.
 
 A CUDA state runs the hand-written Hopper kernel ``csrc/fused_step.cu``
 (built by ``pikazoo_tpu_torch._build`` at first use), one launch per call,
-with the state held in registers for all frames.  A CPU state runs the plain
+with the state held in registers for all frames and the rule AI's landing
+loops pooled over each warp's 32 lanes.  A CPU state runs the plain
 PyTorch version, a Python loop of :func:`_fused_frame` over the port's
 ``decode_action_arith`` and ``env_frame`` with the plain landing
 simulation.  On CUDA the kernel launches or the call raises: there is no
@@ -176,7 +177,22 @@ def _library() -> ctypes.CDLL:
     fn = lib.fused_rollout_launch
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int32] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    counted = lib.fused_rollout_count_launch
+    counted.argtypes = fn.argtypes[:-1] + [ctypes.c_void_p, ctypes.c_void_p]
+    counted.restype = ctypes.c_int
+    lib.fused_step_num_counts.restype = ctypes.c_int
+    if lib.fused_step_num_counts() != len(POOL_COUNTS):
+        raise RuntimeError(f"csrc/fused_step.cu keeps {lib.fused_step_num_counts()} "
+                           f"pool counts, the wrapper names {len(POOL_COUNTS)}")
     return lib
+
+
+# The counts of the kernel's counting instance (enum Count): true-ball jobs
+# and candidate jobs posted, jobs run, sim_step iterations, pool steps
+# (warp-wide), and results written other than once (checked by the host
+# build only).
+POOL_COUNTS = ("true_jobs", "candidate_jobs", "jobs_run", "iterations",
+               "pool_steps", "misses")
 
 
 def _check_frames(frames) -> None:
@@ -195,6 +211,16 @@ def _check_batch(batch: int) -> None:
         raise ValueError(f"batch must be a multiple of {BLOCK_ENVS}, got {batch}")
 
 
+def _check_packed(packed: torch.Tensor) -> torch.device:
+    if packed.dtype != I32 or packed.dim() != 2 or packed.shape[0] != NFIELDS:
+        raise ValueError(f"packed state must be ({NFIELDS}, B) int32, got "
+                         f"{tuple(packed.shape)} {packed.dtype}")
+    if not packed.is_contiguous():
+        raise ValueError("packed state must be contiguous")
+    _check_batch(packed.shape[1])
+    return _check_device(packed.device)
+
+
 def rollout_packed(packed: torch.Tensor, config: EnvConfig,
                    frames: int) -> torch.Tensor:
     """Advance a packed ``(NFIELDS, B)`` int32 state ``frames`` frames.
@@ -204,13 +230,7 @@ def rollout_packed(packed: torch.Tensor, config: EnvConfig,
     launch adds one to ``fused_rollout.launches``.  On the CPU it returns
     :func:`rollout_packed_plain`'s new matrix."""
     _check_frames(frames)
-    if packed.dtype != I32 or packed.dim() != 2 or packed.shape[0] != NFIELDS:
-        raise ValueError(f"packed state must be ({NFIELDS}, B) int32, got "
-                         f"{tuple(packed.shape)} {packed.dtype}")
-    if not packed.is_contiguous():
-        raise ValueError("packed state must be contiguous")
-    _check_batch(packed.shape[1])
-    device = _check_device(packed.device)
+    device = _check_packed(packed)
     if device.type == "cpu":
         return rollout_packed_plain(packed, config, frames)
     if frames == 0:
@@ -218,13 +238,37 @@ def rollout_packed(packed: torch.Tensor, config: EnvConfig,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _library().fused_rollout_launch(
-            packed.data_ptr(), packed.shape[1], frames, config.winning_score,
-            SERVE_MODES.index(config.serve), int(config.is_player1_computer),
-            int(config.is_player2_computer), int(config.auto_reset), stream)
+            *_launch_args(packed, config, frames), stream)
     if err != 0:
         raise RuntimeError(f"fused rollout kernel launch failed: CUDA error {err}")
     fused_rollout.launches += 1
     return packed
+
+
+def _launch_args(packed: torch.Tensor, config: EnvConfig, frames: int):
+    return (packed.data_ptr(), packed.shape[1], frames, config.winning_score,
+            SERVE_MODES.index(config.serve), int(config.is_player1_computer),
+            int(config.is_player2_computer), int(config.auto_reset))
+
+
+def rollout_packed_counted(packed: torch.Tensor, config: EnvConfig,
+                           frames: int) -> Dict[str, int]:
+    """Advance a packed CUDA state in place, as :func:`rollout_packed`, by
+    the kernel's counting instance, and return the landing pool's counts
+    (:data:`POOL_COUNTS`; ``misses`` stays 0 on the card).  Lane efficiency
+    is ``iterations / (32 * pool_steps)``.  A measuring launch: it
+    synchronises, and it does not count in ``fused_rollout.launches``."""
+    _check_frames(frames)
+    if _check_packed(packed).type != "cuda":
+        raise ValueError("the counting instance runs on the card only")
+    counts = torch.zeros(len(POOL_COUNTS), dtype=torch.int64, device=packed.device)
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream(packed.device).cuda_stream
+        err = _library().fused_rollout_count_launch(
+            *_launch_args(packed, config, frames), counts.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"fused rollout counting launch failed: CUDA error {err}")
+    return dict(zip(POOL_COUNTS, counts.tolist()))
 
 
 def _leaves(tree):

@@ -14,8 +14,8 @@
 // lane has landed.
 //
 // What the design does about it.  One thread a lane, the state in
-// registers, each thread leaving its own loop (pika::sim, the loop K2 and K3
-// run).  The TPU kernel pads n to 1024-lane blocks with vx == 0 lanes, since
+// registers, each thread leaving its own loop (pika::sim, the loop K2 runs;
+// K3 runs its sim_step in a warp's pool).  The TPU kernel pads n to 1024-lane blocks with vx == 0 lanes, since
 // a block runs until its slowest lane lands; here a warp of 32 lanes is that
 // unit, and the tail is guarded instead of padded.  The probe measures
 // whether ordering the lanes by their expected trip count (an ETA sort),

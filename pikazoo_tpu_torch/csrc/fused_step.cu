@@ -16,25 +16,36 @@
 // draw counter's stream and the action keys are uint32 bit patterns in
 // int32 rows; the threefry arithmetic and its remainders run on uint32.
 //
-// Design: one thread per env, 256 a block.  A thread loads its env's 56
-// fields field-major (field f of env e at f * B + e, so a warp's 32 loads of
-// one field are contiguous and coalesced), runs all frames with the state in
-// registers, and stores the fields back in place.  HBM sees 224 bytes per env per call, whatever `frames` is:
-// at B = 262144, 117 MB, some 35 us of the card's bandwidth.
+// Design: one thread per env, 128 a block.  A thread loads its env's 56
+// fields field-major, runs all frames with the state in registers, and
+// stores the fields back in place.  HBM sees 224 bytes per env per call,
+// whatever `frames` is: at B = 262144, 117 MB, some 35 us of the card's
+// bandwidth.
 //
 // What bounds it: integer instructions and divergence, not bytes.  A frame
-// is a few hundred integer operations (two threefry action draws of ~150,
-// the physics, up to a few site draws), and with a computer seat every
-// thread runs the true ball's landing loop each frame (up to 1000
-// iterations, typically tens to a couple of hundred), plus, for a seat that
-// may smash, up to 6 candidate loops in turn.  A warp pays the slowest of
-// its 32 envs in each loop, where the landing kernel (landing.cu) spreads
-// the 7 loops of an env over 7 threads.  The candidates are simulated
-// lazily, in the AI's search order, stopping at the first accepted one; the
-// JAX kernel computes all 7 lanes every frame.  The accepted candidate is
-// the same either way, since every lane is a pure function of the ball.
-// Spreading the loops over threads, or compacting live lanes, is later
-// work.
+// is a few hundred integer operations (two threefry action draws of ~80,
+// the physics, up to a few site draws), and with a computer seat the rule
+// AI's landing loops: the true ball's every frame (up to 1000 iterations,
+// typically tens), and, for an env whose computer seat is airborne near the
+// ball, the 6 power-hit candidates'.  A warp runs until its slowest lane is
+// done, so a lane running its env's loops in turn would make the warp pay,
+// loop by loop, the longest of its 32 lanes, and hold 31 lanes idle while one
+// searched its candidates.
+//
+// What the design does about it: the frame runs in three parts.  The front
+// (action sampling and decode, the resets, ball_world) and the back (the AI's
+// decisions, movement, collisions, scoring) run a lane an env.  Between them
+// the warp pools its landing loops: each env posts its true ball, and an env
+// whose computer seat asks for the candidates posts all 6, which both seats
+// share (they depend only on the ball and k).  The 32 lanes then run the
+// warp's job list one sim_step at a time, each idle lane taking the next job,
+// and write the results to the warp's shared slice, where the back reads
+// them.  The JAX kernel computes all 7 lanes every frame too; the accepted
+// candidate and the draws are the same as the lazy search's, since a landing
+// sim draws nothing.  The pool is warp-synchronous (full-mask ballots,
+// __syncwarp where lanes hand each other shared memory; no block barrier).
+// A counting instance of each AI build adds up the pool's work (enum Count)
+// for chip_smoke.py and tools/k3_probe.py.
 //
 // The computer flags are template parameters, so the human-only build holds
 // no AI or landing code, as the static config prunes it in JAX
@@ -270,19 +281,33 @@ PIKA_HD bool ball_world(int32_t* s) {
 
 // ---- rule AI (core/ai.py) ----
 
-// The first power-hit candidate, in the coin's order, whose landing x is on
-// the far side and away from the other player; -1 if none is.  Order "A"
-// (coin 0) is the canonical order; order "B" (coin 1) visits candidate
-// p < 3 ? 2 - p : 8 - p at position p.
+// Whether computer seat P2 asks for the power-hit candidates this frame: it
+// is airborne within 48 px of the ball on both axes (computer_decide_input's
+// smash branch).  It reads only the seat's own fields and the ball's, which
+// the other seat's decision and move leave as they are, so the frame's front
+// part can tell for both seats right after ball_world.
 template <bool P2>
-PIKA_HD int32_t first_accepted_candidate(const int32_t* s, int32_t coin) {
+PIKA_HD bool asks_for_candidates(const int32_t* s) {
+  constexpr int o = P2 ? kSeat : 0;
+  const int32_t state = s[P1_STATE + o];
+  return (state == 1 || state == 2) && iabs(s[BALL_X] - s[P1_X + o]) < 48 &&
+         iabs(s[BALL_Y] - s[P1_Y + o]) < 48;
+}
+
+// The first power-hit candidate, in the coin's order, whose landing x
+// (cand[k], computed by the warp's landing pool) is on the far side and away
+// from the other player; -1 if none is.  Order "A" (coin 0) is the canonical
+// order; order "B" (coin 1) visits candidate p < 3 ? 2 - p : 8 - p at
+// position p.
+template <bool P2>
+PIKA_HD int32_t first_accepted_candidate(const int32_t* s, int32_t coin,
+                                         const int32_t* cand) {
   constexpr int32_t lb = P2 ? kHalfWidth : 0;
   constexpr int32_t far_side = (P2 ? kGroundWidth : 0) + kHalfWidth;
   const int32_t other_x = s[P2 ? P1_X : P2_X];
   for (int32_t p = 0; p < 6; ++p) {
     const int32_t k = coin == 0 ? p : (p < 3 ? 2 - p : 8 - p);
-    const int32_t land =
-        pika::candidate_landing(k, s[BALL_X], s[BALL_Y], s[BALL_Y_VELOCITY]);
+    const int32_t land = cand[k];
     if ((land <= lb || land >= far_side) &&
         iabs(land - other_x) > kPlayerLength)
       return k;
@@ -293,14 +318,14 @@ PIKA_HD int32_t first_accepted_candidate(const int32_t* s, int32_t coin) {
 // The computer's input for this frame; updates its where-to-stand-by and
 // consumes its draws in the reference's order: the reposition coin (20)
 // when not chasing, the stand-by draw (2) when that coin is 0, the smash
-// coin (2) when airborne near the ball.
+// coin (2) when airborne near the ball.  cand: the 6 candidates' landing x.
 template <bool P2>
-PIKA_HD Input computer_decide_input(int32_t* s) {
+PIKA_HD Input computer_decide_input(int32_t* s, const int32_t* cand) {
   constexpr int o = P2 ? kSeat : 0;
   constexpr int32_t lb = P2 ? kHalfWidth : 0;
   constexpr int32_t rb = P2 ? kGroundWidth : kHalfWidth;
   constexpr int32_t far_side = (P2 ? kGroundWidth : 0) + kHalfWidth;
-  const int32_t px = s[P1_X + o], py = s[P1_Y + o];
+  const int32_t px = s[P1_X + o];
   const int32_t bold = s[P1_COMPUTER_BOLDNESS + o];
   const int32_t state = s[P1_STATE + o];
   const int32_t bx = s[BALL_X], by = s[BALL_Y];
@@ -333,8 +358,8 @@ PIKA_HD Input computer_decide_input(int32_t* s) {
     }
   } else if (state == 1 || state == 2) {
     if (ball_dx > 8) in.xd = toward_ball;
-    if (ball_dx < 48 && iabs(by - py) < 48) {
-      const int32_t k = first_accepted_candidate<P2>(s, draw(s, 2));
+    if (asks_for_candidates<P2>(s)) {
+      const int32_t k = first_accepted_candidate<P2>(s, draw(s, 2), cand);
       if (k >= 0) {
         in.xd = k < 3 ? 1 : 0;
         in.yd = k % 3 - 1;
@@ -465,16 +490,18 @@ PIKA_HD void collide(int32_t* s, const Input& in) {
 }
 
 // ---- one frame (core/fused_step.py _fused_frame, envs/pika_volley.py
-// env_frame, core/engine.py physics_step) ----
+// env_frame, core/engine.py physics_step), in three parts: the front, the
+// warp's landing pool, the back ----
 
-template <bool C1, bool C2>
-PIKA_HD void fused_frame(int32_t* s, const Config& cfg) {
-  // Both seats sample and decode; the latches follow the sampled actions
-  // even for a computer seat, whose AI then replaces only the input.
-  Input in1 = decode_action(sample_action(s, 0), s[LATCH1]);
-  Input in2 = decode_action(sample_action(s, 1), s[LATCH2]);
+// The front: both seats sample and decode their actions (the latches follow
+// the sampled actions even for a computer seat, whose AI then replaces only
+// the input), the lazy round reset and auto game reset with their draws, and
+// the ball's world step.  Returns whether the ball touched the ground.
+PIKA_HD bool frame_front(int32_t* s, const Config& cfg, Input& in1,
+                         Input& in2) {
+  in1 = decode_action(sample_action(s, 0), s[LATCH1]);
+  in2 = decode_action(sample_action(s, 1), s[LATCH2]);
 
-  // Lazy round reset and auto game reset.
   const bool game_reset = cfg.auto_reset && s[GAME_ENDED] == 1;
   const bool do_init = (s[ROUND_ENDED] == 1 && s[GAME_ENDED] == 0) || game_reset;
   if (game_reset) {
@@ -502,14 +529,23 @@ PIKA_HD void fused_frame(int32_t* s, const Config& cfg) {
     round_init_ball(s, player2_serves);
     s[ROUND_ENDED] = 0;
   }
+  return ball_world(s);
+}
 
-  const bool touched = ball_world(s);
-  if (C1 || C2)
-    s[BALL_EXPECTED_LANDING_POINT_X] = pika::sim(
-        s[BALL_X], s[BALL_Y], s[BALL_X_VELOCITY], s[BALL_Y_VELOCITY], true);
-  if (C1) in1 = computer_decide_input<false>(s);
+// The back: the computer seats decide from the landing results (landing[0]
+// the true ball's, landing[1 + k] candidate k's; null without a computer
+// seat), then the players move, the ball collides with player 1 then player
+// 2, and the point is scored.  The draws follow the reference's order: the
+// AI's of player 1, then player 2's, then the collisions'.  The landing sims
+// draw nothing, so computing them all before the decisions gives the same
+// draws and the same accepted candidate as simulating them lazily.
+template <bool C1, bool C2>
+PIKA_HD void frame_back(int32_t* s, const Config& cfg, Input in1, Input in2,
+                        bool touched, const int32_t* landing) {
+  if (C1 || C2) s[BALL_EXPECTED_LANDING_POINT_X] = landing[0];
+  if (C1) in1 = computer_decide_input<false>(s, landing + 1);
   move_player<false>(s, in1);
-  if (C2) in2 = computer_decide_input<true>(s);
+  if (C2) in2 = computer_decide_input<true>(s, landing + 1);
   move_player<true>(s, in2);
   collide<false>(s, in1);
   collide<true>(s, in2);
@@ -530,51 +566,383 @@ PIKA_HD void fused_frame(int32_t* s, const Config& cfg) {
   ++s[STEP_COUNT];
 }
 
-template <bool C1, bool C2>
-PIKA_HD void run_env(int32_t* state, int64_t n, int64_t e, int32_t frames,
-                     const Config& cfg) {
-  int32_t s[NFIELDS];
-#pragma unroll
-  for (int f = 0; f < NFIELDS; ++f) s[f] = state[f * n + e];
-  for (int32_t t = 0; t < frames; ++t) fused_frame<C1, C2>(s, cfg);
-#pragma unroll
-  for (int f = 0; f < NFIELDS; ++f) state[f * n + e] = s[f];
+// ---- the warp's landing pool ----
+//
+// The code below is written once for a warp of 32 lanes, one env a lane,
+// against a Warp type that supplies the collectives: on the card a thread's
+// view of a real warp (DeviceWarp), in the host build an emulated warp that
+// runs each lane's part in a lockstep loop over the lanes (HostWarp).  Warp
+// members: each(f) calls f(lane, lane index) for the lanes it holds,
+// ballot(p) is the 32-bit mask of p(lane), lane_max(p) the largest p(lane),
+// sync() orders the lanes' shared memory writes before their reads,
+// slice() is the warp's PoolSlice, landed(slot, x) writes a result; the
+// hooks posted / steps / iterated / landed / settled count the pool's work
+// where kCounting (see Count).
+
+constexpr int kWarp = 32;
+constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr int kCandidates = 6;
+constexpr int kSlots = 1 + kCandidates;  // landing results an env: true ball, candidates
+
+PIKA_HD int popc(unsigned m) {
+#if defined(__CUDA_ARCH__)
+  return __popc(m);
+#else
+  return __builtin_popcount(m);
+#endif
 }
+
+// Lanes below `lane` in a mask.
+PIKA_HD unsigned below(int lane) { return (1u << lane) - 1u; }
+
+// A warp's shared memory: each lane's ball after ball_world, the lanes of
+// the envs that ask for the candidates in rank order, and the landing
+// results (lane * kSlots + slot): 1,536 bytes.
+struct PoolSlice {
+  int32_t ball[4][kWarp];  // x, y, x velocity, y velocity
+  int32_t asker[kWarp];
+  int32_t landing[kWarp * kSlots];
+};
+
+// One lane's landing job: the loop state of sim_step, the iteration count,
+// the net rule and the result slot.  vx == 0: the lane is idle.  start: the
+// count where the end run began (the counting instances only).
+struct Job {
+  int32_t x, y, vx, vy, count, slot, start;
+  bool full_rule;
+};
+
+// Job j of the warp's list: j < 32 is lane j's true ball under the full net
+// rule; 32 + 6 r + k is candidate k of the r-th env that asks, under the
+// mistake rule.  Both seats of an env share its candidates: they depend only
+// on the ball and k.
+PIKA_HD void take_job(Job& job, int32_t j, const PoolSlice& sh) {
+  int32_t owner = j, k = -1;
+  if (j >= kWarp) {
+    const int32_t r = (j - kWarp) / kCandidates;
+    owner = sh.asker[r];
+    k = j - kWarp - kCandidates * r;
+  }
+  job.x = sh.ball[0][owner];
+  job.y = sh.ball[1][owner];
+  job.count = 0;
+  job.slot = owner * kSlots + 1 + k;
+  job.full_rule = k < 0;
+  if (k < 0) {
+    job.vx = sh.ball[2][owner];
+    job.vy = sh.ball[3][owner];
+  } else {
+    pika::candidate_velocity(k, job.x, sh.ball[3][owner], job.vx, job.vy);
+  }
+}
+
+// Everything a lane holds: its env's state and the frame's carry between
+// the front and the back, and its landing job.
+struct Lane {
+  int32_t s[NFIELDS];
+  Input in1, in2;
+  bool touched, asks;
+  Job job;
+};
+
+#if defined(__CUDACC__)
+#define PIKA_WARP __device__ __forceinline__
+#else
+#define PIKA_WARP inline
+#endif
+
+// Runs the warp's job list: 32 true-ball jobs, then 6 for each env in
+// `asking`.  While jobs remain, every idle lane takes the next one (in lane
+// order, by the popcount of the idle lanes below it) and the warp advances
+// every live job one sim_step a pool step; a landed job writes its slot and
+// leaves its lane idle for the next job.  Once the list is empty, each lane
+// runs its last job to the end alone, with no ballot a step.  The warp so
+// pays about the sum of its jobs' iterations over 32, plus the longest job,
+// where one lane running its env's loops in turn pays, loop by loop, the
+// longest of its 32 lanes.  A frame with no candidates assigns the 32 true
+// balls at once and goes straight to the end run.
+template <class Warp>
+PIKA_WARP void landing_pool(Warp& w, unsigned asking) {
+  PoolSlice& sh = w.slice();
+  const int32_t total = kWarp + kCandidates * popc(asking);
+  w.posted(kWarp, total - kWarp);
+  for (int32_t next = 0;;) {
+    const unsigned idle = w.ballot([](const Lane& l) { return l.job.vx == 0; });
+    if (idle != 0) {
+      w.each([&](Lane& l, int lane) {
+        const int32_t j = next + popc(idle & below(lane));
+        if ((idle >> lane & 1u) && j < total) {
+          take_job(l.job, j, sh);
+          if (l.job.vx == 0) w.landed(l.job.slot, l.job.x);  // the net-top trap
+        }
+      });
+      next += popc(idle);
+      if (next >= total) break;
+    }
+    w.steps(1);
+    w.each([&](Lane& l, int) {
+      Job& job = l.job;
+      if (job.vx != 0) {
+        w.iterated();
+        if (pika::sim_step(job.x, job.y, job.vx, job.vy, ++job.count,
+                           job.full_rule))
+          w.landed(job.slot, job.x);
+      }
+    });
+  }
+  w.each([&](Lane& l, int) {
+    Job& job = l.job;
+    if (Warp::kCounting) job.start = job.count;
+    if (job.vx == 0) return;
+    do {
+      w.iterated();
+    } while (!pika::sim_step(job.x, job.y, job.vx, job.vy, ++job.count,
+                             job.full_rule));
+    w.landed(job.slot, job.x);
+  });
+  if (Warp::kCounting)
+    w.steps(w.lane_max([](const Lane& l) { return l.job.count - l.job.start; }));
+}
+
+// One frame of the warp's 32 envs.
+template <bool C1, bool C2, class Warp>
+PIKA_WARP void warp_frame(Warp& w, const Config& cfg) {
+  PoolSlice& sh = w.slice();
+  w.each([&](Lane& l, int lane) {
+    l.touched = frame_front(l.s, cfg, l.in1, l.in2);
+    if (C1 || C2) {
+      sh.ball[0][lane] = l.s[BALL_X];
+      sh.ball[1][lane] = l.s[BALL_Y];
+      sh.ball[2][lane] = l.s[BALL_X_VELOCITY];
+      sh.ball[3][lane] = l.s[BALL_Y_VELOCITY];
+      l.asks = (C1 && asks_for_candidates<false>(l.s)) ||
+               (C2 && asks_for_candidates<true>(l.s));
+    }
+  });
+  if (C1 || C2) {
+    const unsigned asking = w.ballot([](const Lane& l) { return l.asks; });
+    w.each([&](Lane& l, int lane) {
+      if (l.asks) sh.asker[popc(asking & below(lane))] = lane;
+    });
+    w.sync();
+    landing_pool(w, asking);
+    w.sync();
+    w.settled(asking);
+  }
+  w.each([&](Lane& l, int lane) {
+    frame_back<C1, C2>(l.s, cfg, l.in1, l.in2, l.touched,
+                       (C1 || C2) ? &sh.landing[lane * kSlots] : nullptr);
+  });
+}
+
+// The counts of the counting instance, summed over the launch: true-ball
+// jobs posted, candidate jobs posted, jobs run (results written),
+// iterations of sim_step, pool steps (warp-wide), and, in the host build
+// only, results written other than once in their frame.  Lane efficiency
+// is iterations / (32 * pool steps).
+enum Count { kTrueJobs, kCandidateJobs, kJobsRun, kIterations, kPoolSteps,
+             kMisses, kNumCounts };
 
 #if defined(__CUDACC__)
 
-constexpr int kThreads = 256;
+// Block size.  B is a multiple of 1024 (core/fused_step.py BLOCK_ENVS), so
+// every block and every warp is full.  128 and 256 take the same time on the
+// AI call at B = 65536; at 128 nvcc gives the human-only instance 80
+// registers (112 at 256) and the random-action call at B = 262144 runs 7.5%
+// faster (tools/k3_probe.py on an H100).
+constexpr int kThreads = 128;
 using Stream = cudaStream_t;
 
-template <bool C1, bool C2>
+// A lane's counts, summed over the warp and added to the output at the end.
+struct LaneCounts {
+  static constexpr bool kOn = true;
+  unsigned long long v[kNumCounts] = {};
+  __device__ void add(Count c, unsigned long long n) { v[c] += n; }
+  __device__ void flush(unsigned long long* out) {
+#pragma unroll
+    for (int c = 0; c < kNumCounts; ++c) {
+      unsigned long long sum = v[c];
+#pragma unroll
+      for (int d = kWarp / 2; d > 0; d /= 2)
+        sum += __shfl_xor_sync(kFullWarp, sum, d);
+      if (threadIdx.x % kWarp == 0 && sum != 0) atomicAdd(out + c, sum);
+    }
+  }
+};
+
+struct NoCounts {
+  static constexpr bool kOn = false;
+  __device__ void add(Count, unsigned long long) {}
+  __device__ void flush(unsigned long long*) {}
+};
+
+// One thread's view of its warp.
+template <class Counts>
+struct DeviceWarp {
+  static constexpr bool kCounting = Counts::kOn;
+  Lane& l;
+  const int lane;
+  PoolSlice& sh;
+  Counts& counts;
+
+  template <class F>
+  __device__ __forceinline__ void each(F f) { f(l, lane); }
+  template <class P>
+  __device__ __forceinline__ unsigned ballot(P p) {
+    return __ballot_sync(kFullWarp, p(l));
+  }
+  template <class P>
+  __device__ __forceinline__ int32_t lane_max(P p) {
+    return __reduce_max_sync(kFullWarp, p(l));
+  }
+  __device__ __forceinline__ void sync() { __syncwarp(); }
+  __device__ __forceinline__ PoolSlice& slice() { return sh; }
+  __device__ __forceinline__ void posted(int32_t true_jobs, int32_t candidates) {
+    if (lane == 0) {
+      counts.add(kTrueJobs, true_jobs);
+      counts.add(kCandidateJobs, candidates);
+    }
+  }
+  __device__ __forceinline__ void steps(int32_t n) {
+    if (lane == 0) counts.add(kPoolSteps, n);
+  }
+  __device__ __forceinline__ void iterated() { counts.add(kIterations, 1); }
+  __device__ __forceinline__ void landed(int32_t slot, int32_t x) {
+    sh.landing[slot] = x;
+    counts.add(kJobsRun, 1);
+  }
+  __device__ __forceinline__ void settled(unsigned) {}
+};
+
+// One thread an env.  The thread loads its env's 56 fields field-major
+// (field f of env e at f * n + e: a warp's 32 loads of one field are
+// coalesced), runs every frame with them in registers and stores them back.
+template <bool C1, bool C2, class Counts>
 __global__ void __launch_bounds__(kThreads)
 fused_rollout_kernel(int32_t* __restrict__ state, int32_t n, int32_t frames,
-                     Config cfg) {
-  const int64_t e = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e < n) run_env<C1, C2>(state, n, e, frames, cfg);
+                     Config cfg, unsigned long long* counts_out) {
+  __shared__ PoolSlice slices[kThreads / kWarp];
+  const int64_t e = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  Lane l;
+#pragma unroll
+  for (int f = 0; f < NFIELDS; ++f) l.s[f] = state[f * int64_t(n) + e];
+  l.job.vx = 0;
+  Counts counts;
+  DeviceWarp<Counts> w{l, int(threadIdx.x % kWarp), slices[threadIdx.x / kWarp],
+                       counts};
+  for (int32_t t = 0; t < frames; ++t) warp_frame<C1, C2>(w, cfg);
+  // The stores' base goes through an empty asm, so nvcc computes their 56
+  // addresses here and does not keep the loads' live across the frames
+  // (that took 112 registers more: 210-226 a thread, or 128 with ~290
+  // bytes of spills).
+  int32_t* out = state + e;
+  asm volatile("" : "+l"(out));
+#pragma unroll
+  for (int f = 0; f < NFIELDS; ++f) out[f * int64_t(n)] = l.s[f];
+  counts.flush(counts_out);
 }
 
-template <bool C1, bool C2>
+template <bool C1, bool C2, class Counts>
 int rollout(int32_t* state, int32_t n, int32_t frames, const Config& cfg,
-            Stream stream) {
-  const unsigned blocks = unsigned((n + kThreads - 1) / kThreads);
-  fused_rollout_kernel<C1, C2><<<blocks, kThreads, 0, stream>>>(state, n,
-                                                                frames, cfg);
+            unsigned long long* counts, Stream stream) {
+  if (n % kThreads != 0) return int(cudaErrorInvalidValue);
+  fused_rollout_kernel<C1, C2, Counts><<<unsigned(n / kThreads), kThreads, 0,
+                                         stream>>>(state, n, frames, cfg, counts);
   return int(cudaGetLastError());
 }
 
-#else  // A host build of the same frame code, which the CPU tests run.
+using Counted = LaneCounts;
+using Uncounted = NoCounts;
+
+#else  // A host build of the same frame and pool code, which the CPU tests run.
 
 using Stream = void*;
 
-template <bool C1, bool C2>
+// An emulated warp: 32 lanes run in lockstep, each part of a lane's code in
+// a loop over the lanes; it counts always, and checks that every posted
+// result was written exactly once in its frame.
+struct HostWarp {
+  static constexpr bool kCounting = true;
+  Lane lanes[kWarp];
+  PoolSlice sh;
+  int64_t* counts;
+  int32_t writes[kWarp * kSlots];
+
+  template <class F>
+  void each(F f) {
+    for (int i = 0; i < kWarp; ++i) f(lanes[i], i);
+  }
+  template <class P>
+  unsigned ballot(P p) {
+    unsigned mask = 0;
+    for (int i = 0; i < kWarp; ++i) mask |= unsigned(bool(p(lanes[i]))) << i;
+    return mask;
+  }
+  template <class P>
+  int32_t lane_max(P p) {
+    int32_t m = p(lanes[0]);
+    for (int i = 1; i < kWarp; ++i) m = p(lanes[i]) > m ? p(lanes[i]) : m;
+    return m;
+  }
+  void sync() {}
+  PoolSlice& slice() { return sh; }
+  void posted(int32_t true_jobs, int32_t candidates) {
+    counts[kTrueJobs] += true_jobs;
+    counts[kCandidateJobs] += candidates;
+    for (int32_t& n : writes) n = 0;
+  }
+  void steps(int32_t n) { counts[kPoolSteps] += n; }
+  void iterated() { ++counts[kIterations]; }
+  void landed(int32_t slot, int32_t x) {
+    sh.landing[slot] = x;
+    ++counts[kJobsRun];
+    ++writes[slot];
+  }
+  void settled(unsigned asking) {
+    for (int i = 0; i < kWarp; ++i)
+      for (int j = 0; j < kSlots; ++j)
+        counts[kMisses] += writes[i * kSlots + j] !=
+                           (j == 0 || (asking >> i & 1u) ? 1 : 0);
+  }
+};
+
+struct Counted {};
+struct Uncounted {};
+
+// Envs in groups of 32, each group on an emulated warp.
+template <bool C1, bool C2, class>
 int rollout(int32_t* state, int32_t n, int32_t frames, const Config& cfg,
-            Stream) {
-  for (int64_t e = 0; e < n; ++e) run_env<C1, C2>(state, n, e, frames, cfg);
+            unsigned long long* counts, Stream) {
+  if (n % kWarp != 0) return 1;
+  int64_t local[kNumCounts] = {};
+  HostWarp w;
+  w.counts = local;
+  for (int64_t base = 0; base < n; base += kWarp) {
+    for (int i = 0; i < kWarp; ++i) {
+      for (int f = 0; f < NFIELDS; ++f)
+        w.lanes[i].s[f] = state[f * int64_t(n) + base + i];
+      w.lanes[i].job.vx = 0;
+    }
+    for (int32_t t = 0; t < frames; ++t) warp_frame<C1, C2>(w, cfg);
+    for (int i = 0; i < kWarp; ++i)
+      for (int f = 0; f < NFIELDS; ++f)
+        state[f * int64_t(n) + base + i] = w.lanes[i].s[f];
+  }
+  if (counts)
+    for (int c = 0; c < kNumCounts; ++c) counts[c] += local[c];
   return 0;
 }
 
 #endif
+
+template <class Counts>
+int rollout_any(int32_t* s, int32_t n, int32_t frames, const Config& cfg,
+                bool c1, bool c2, unsigned long long* counts, Stream st) {
+  if (c1 && c2) return rollout<true, true, Counts>(s, n, frames, cfg, counts, st);
+  if (c1) return rollout<true, false, Counts>(s, n, frames, cfg, counts, st);
+  if (c2) return rollout<false, true, Counts>(s, n, frames, cfg, counts, st);
+  return rollout<false, false, Uncounted>(s, n, frames, cfg, counts, st);
+}
 
 }  // namespace
 
@@ -582,18 +950,46 @@ int rollout(int32_t* state, int32_t n, int32_t frames, const Config& cfg,
 // NFIELDS at load.
 extern "C" int fused_step_nfields() { return NFIELDS; }
 
-// Advances the (NFIELDS, n) int32 state in place by `frames` frames.
-// Launches on `stream` and returns cudaGetLastError(); never synchronises.
+// Advances the (NFIELDS, n) int32 state in place by `frames` frames; n a
+// multiple of the block size (128).  Launches on `stream` and returns
+// cudaGetLastError(); never synchronises.
 extern "C" int fused_rollout_launch(void* state, int32_t n, int32_t frames,
                                     int32_t winning_score, int32_t serve_mode,
                                     int32_t p1_computer, int32_t p2_computer,
                                     int32_t auto_reset, void* stream) {
   if (n <= 0 || frames <= 0) return 0;
   const Config cfg{winning_score, serve_mode, auto_reset != 0};
-  int32_t* s = static_cast<int32_t*>(state);
-  const Stream st = static_cast<Stream>(stream);
-  if (p1_computer && p2_computer) return rollout<true, true>(s, n, frames, cfg, st);
-  if (p1_computer) return rollout<true, false>(s, n, frames, cfg, st);
-  if (p2_computer) return rollout<false, true>(s, n, frames, cfg, st);
-  return rollout<false, false>(s, n, frames, cfg, st);
+  return rollout_any<Uncounted>(static_cast<int32_t*>(state), n, frames, cfg,
+                                p1_computer != 0, p2_computer != 0, nullptr,
+                                static_cast<Stream>(stream));
 }
+
+// The same rollout by the counting instance, which also adds the landing
+// pool's counts (enum Count, kNumCounts uint64 words) to `counts`.  Without
+// a computer seat there is no pool and nothing is counted.
+extern "C" int fused_rollout_count_launch(void* state, int32_t n, int32_t frames,
+                                          int32_t winning_score,
+                                          int32_t serve_mode,
+                                          int32_t p1_computer,
+                                          int32_t p2_computer,
+                                          int32_t auto_reset, void* counts,
+                                          void* stream) {
+  if (n <= 0 || frames <= 0) return 0;
+  const Config cfg{winning_score, serve_mode, auto_reset != 0};
+  return rollout_any<Counted>(static_cast<int32_t*>(state), n, frames, cfg,
+                              p1_computer != 0, p2_computer != 0,
+                              static_cast<unsigned long long*>(counts),
+                              static_cast<Stream>(stream));
+}
+
+// The number of counts the counting entry adds to.
+extern "C" int fused_step_num_counts() { return kNumCounts; }
+
+#if !defined(__CUDACC__)
+// The host build's landing loop alone (landing_sim.cuh's sim, over
+// sim_step), for the CPU tests.
+extern "C" int32_t fused_step_host_sim(int32_t x, int32_t y, int32_t vx,
+                                       int32_t vy, int32_t full_rule) {
+  return pika::sim(x, y, vx, vy, full_rule != 0);
+}
+#endif

@@ -34,7 +34,9 @@ from pikazoo_tpu_torch.convert import env_state_from_numpy, env_state_to_numpy
 from pikazoo_tpu_torch.core import fused_step
 from pikazoo_tpu_torch.envs import EnvConfig, PikaZoo
 from pikazoo_tpu_torch.envs.pika_volley import SERVE_MODES
-from torch_helpers import assert_same
+from pikazoo_tpu_torch.core import predict
+from pikazoo_tpu_torch.tools import k3_probe
+from torch_helpers import assert_same, named_leaves
 
 B = fused_step.BLOCK_ENVS
 
@@ -53,9 +55,9 @@ def configs(kw):
 
 
 @pytest.fixture(scope="module")
-def host_rollout(tmp_path_factory):
-    """``rollout_packed`` of a host build of ``csrc/fused_step.cu``: returns
-    a new matrix."""
+def host_library(tmp_path_factory):
+    """A host (g++) build of ``csrc/fused_step.cu``: its frame and pool code
+    on emulated 32-lane warps."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build the kernel's frame code for the host")
     lib_path = tmp_path_factory.mktemp("host") / "libfused_host.so"
@@ -69,13 +71,43 @@ def host_rollout(tmp_path_factory):
     fn = lib.fused_rollout_launch
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int32] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    counted = lib.fused_rollout_count_launch
+    counted.argtypes = fn.argtypes[:-1] + [ctypes.c_void_p, ctypes.c_void_p]
+    counted.restype = ctypes.c_int
+    assert lib.fused_step_num_counts() == len(fused_step.POOL_COUNTS)
+    lib.fused_step_host_sim.argtypes = [ctypes.c_int32] * 5
+    lib.fused_step_host_sim.restype = ctypes.c_int32
+    return lib
 
+
+def launch_args(packed, cfg, frames):
+    return (packed.data_ptr(), packed.shape[1], frames, cfg.winning_score,
+            SERVE_MODES.index(cfg.serve), int(cfg.is_player1_computer),
+            int(cfg.is_player2_computer), int(cfg.auto_reset))
+
+
+@pytest.fixture(scope="module")
+def host_rollout(host_library):
+    """``rollout_packed`` of the host build: returns a new matrix."""
     def run(packed, cfg, frames):
         out = packed.clone()
-        assert fn(out.data_ptr(), out.shape[1], frames, cfg.winning_score,
-                  SERVE_MODES.index(cfg.serve), int(cfg.is_player1_computer),
-                  int(cfg.is_player2_computer), int(cfg.auto_reset), None) == 0
+        assert host_library.fused_rollout_launch(*launch_args(out, cfg, frames),
+                                                 None) == 0
         return out
+
+    return run
+
+
+@pytest.fixture(scope="module")
+def host_counted(host_library):
+    """The host build's counting entry: (new matrix, the landing pool's
+    counts by name)."""
+    def run(packed, cfg, frames):
+        out = packed.clone()
+        counts = np.zeros(len(fused_step.POOL_COUNTS), np.int64)
+        assert host_library.fused_rollout_count_launch(
+            *launch_args(out, cfg, frames), counts.ctypes.data, None) == 0
+        return out, dict(zip(fused_step.POOL_COUNTS, counts.tolist()))
 
     return run
 
@@ -148,9 +180,10 @@ def test_rollout_matches_jax_kernel(case, host_rollout):
                        f"{case} host build")
 
 
-def scanned(jcfg, start, seed, frames):
-    """JAX ``step_batch`` over ``fused_actions`` (the fused stream)."""
-    actions = jax_fused.fused_actions(jax.random.key(seed), B, frames)
+def scanned(jcfg, start, seed, frames, first=0):
+    """JAX ``step_batch`` over ``fused_actions`` (the fused stream) from
+    step_count ``first``."""
+    actions = jax_fused.fused_actions(jax.random.key(seed), B, frames, start=first)
     state = start
     for t in range(frames):
         state, _ = jax_step(jcfg)(state, actions[t])
@@ -206,6 +239,166 @@ def test_two_calls_continue_one(host_rollout):
                                   fused_step.pack_state(once, 6).numpy())
 
 
+# ---- the warp's landing pool, on the host build ----
+
+RALLY_SEED, RALLY_FRAMES, RALLY_LOOKAHEAD = 3, 90, 12
+
+
+def take_envs(state, idx):
+    """The envs ``idx`` of a batched EnvState, in that order."""
+    if torch.is_tensor(state):
+        return state[idx].contiguous()
+    return type(state)(*(take_envs(sub, idx) for sub in state))
+
+
+def to_jax(state):
+    """A port EnvState as the JAX package's, leaf for leaf."""
+    template = jax_reset(configs(AI_AI)[0], 0)
+    leaves = [jnp.asarray(leaf) for _, leaf in named_leaves(env_state_to_numpy(state))]
+    return jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(template), leaves)
+
+
+@pytest.fixture(scope="module")
+def rally():
+    """A mid-rally AI-vs-AI state at B=1024 (32 warps): the plain version
+    RALLY_FRAMES frames from a reset, its envs reordered so that those whose
+    computer seats ask for the candidates most often in the next
+    RALLY_LOOKAHEAD frames fill the first warps.  Returns (state, the plain
+    version's landing work over those frames)."""
+    _, cfg = configs(AI_AI)
+    state, _ = PikaZoo(cfg).reset_batch(RALLY_SEED, B, device="cpu")
+    packed = fused_step.rollout_packed_plain(fused_step.pack_state(state, RALLY_SEED),
+                                             cfg, RALLY_FRAMES)
+    _, work = k3_probe.landing_work(packed, cfg, RALLY_LOOKAHEAD)
+    order = torch.argsort(work.asks.any(1).sum(0), descending=True, stable=True)
+    state = take_envs(fused_step.unpack_state(packed), order)
+    _, work = k3_probe.landing_work(fused_step.pack_state(state, RALLY_SEED), cfg,
+                                    RALLY_LOOKAHEAD)
+    return state, work
+
+
+def hold_host_against_jax(state, frames, host_counted):
+    """The host build == JAX ``fused_rollout`` (interpret) == the scanned
+    ``step_batch``, leaf by leaf, ``frames`` frames from ``state`` (every
+    env at one step_count).  Returns the host build's pool counts."""
+    jcfg, cfg = configs(AI_AI)
+    first = int(state.step_count[0])
+    start = to_jax(state)
+    want = jax_fused.fused_rollout(start, jax.random.key(RALLY_SEED), jcfg, frames,
+                                   interpret=True)
+    assert_same(jax.device_get(want),
+                jax.device_get(scanned(jcfg, start, RALLY_SEED, frames, first)),
+                "JAX kernel vs scanned")
+    got, counts = host_counted(fused_step.pack_state(state, RALLY_SEED), cfg, frames)
+    assert_state_equal(want, fused_step.unpack_state(got), "host build")
+    return counts
+
+
+def test_pool_refill_matches_jax(rally, host_counted):
+    """(a) Many envs of one warp ask for the candidates, so its lanes take
+    job after job: the host build still equals JAX bit for bit."""
+    state, work = rally
+    asking = work.asks.any(1).reshape(RALLY_LOOKAHEAD, -1, 32).sum(-1)
+    assert int(asking[:, 0].max()) >= 16  # the first warp: many askers in one frame
+    counts = hold_host_against_jax(state, RALLY_LOOKAHEAD, host_counted)
+    # 16 or more askers post 96 or more candidate jobs for 32 lanes.
+    assert counts["candidate_jobs"] == 6 * int(work.asks.any(1).sum())
+    assert counts["jobs_run"] == B * RALLY_LOOKAHEAD + counts["candidate_jobs"]
+
+
+def test_both_seats_share_candidates(rally, host_counted):
+    """(b) Both computer seats airborne near the ball in one frame: the env
+    posts its 6 candidates once and both seats decide from them."""
+    state = rally[0]
+    env = torch.arange(4)
+    p1 = state.p1._replace(x=state.p1.x.index_fill(0, env, 200),
+                           y=state.p1.y.index_fill(0, env, 150),
+                           y_velocity=state.p1.y_velocity.index_fill(0, env, -3),
+                           state=state.p1.state.index_fill(0, env, 1))
+    p2 = state.p2._replace(x=state.p2.x.index_fill(0, env, 232),
+                           y=state.p2.y.index_fill(0, env, 150),
+                           y_velocity=state.p2.y_velocity.index_fill(0, env, -3),
+                           state=state.p2.state.index_put((env,), torch.tensor([1, 2, 1, 2],
+                                                                               dtype=torch.int32)))
+    ball = state.ball._replace(
+        x=state.ball.x.index_fill(0, env, 216),
+        y=state.ball.y.index_put((env,), torch.tensor([140, 145, 150, 155], dtype=torch.int32)),
+        x_velocity=state.ball.x_velocity.index_put((env,), torch.tensor([3, -3, 5, -5],
+                                                                        dtype=torch.int32)),
+        y_velocity=state.ball.y_velocity.index_put((env,), torch.tensor([4, -2, 6, 1],
+                                                                        dtype=torch.int32)))
+    state = state._replace(p1=p1, p2=p2, ball=ball,
+                           round_ended=state.round_ended.index_fill(0, env, 0),
+                           game_ended=state.game_ended.index_fill(0, env, 0))
+    _, cfg = configs(AI_AI)
+    _, work = k3_probe.landing_work(fused_step.pack_state(state, RALLY_SEED), cfg, 1)
+    assert bool(work.asks[0, :, :4].all())
+    _, counts = host_counted(fused_step.pack_state(state, RALLY_SEED), cfg, 1)
+    assert counts["candidate_jobs"] == 6 * int(work.asks[0].any(0).sum())
+    assert counts["candidate_jobs"] < 6 * int(work.asks[0].sum())
+    hold_host_against_jax(state, 6, host_counted)
+
+
+def test_pool_bookkeeping_each_frame(rally, host_counted):
+    """(c) Each frame every warp posts its 32 true balls and 6 jobs for each
+    env that asks, and runs each exactly once (the host build counts a
+    result written other than once in its frame as a miss); the iterations
+    are the plain version's."""
+    state, work = rally
+    _, cfg = configs(AI_AI)
+    packed = fused_step.pack_state(state, RALLY_SEED)
+    for t in range(RALLY_LOOKAHEAD):
+        packed, counts = host_counted(packed, cfg, 1)
+        asking = int(work.asks[t].any(0).sum())
+        iterations = int(work.true_iterations[t].sum() + work.candidate_iterations[t].sum())
+        assert counts == dict(true_jobs=B, candidate_jobs=6 * asking,
+                              jobs_run=B + 6 * asking, iterations=iterations,
+                              pool_steps=counts["pool_steps"], misses=0), t
+        # A warp takes at least its longest true ball, and at least its
+        # iterations over 32 lanes.
+        warp_iters = (work.true_iterations[t] + work.candidate_iterations[t]).reshape(-1, 32)
+        assert counts["pool_steps"] >= int(work.true_iterations[t].reshape(-1, 32).amax(1).sum())
+        assert counts["pool_steps"] >= int(((warp_iters.sum(1) + 31) // 32).sum())
+
+
+# Edge cases of the landing loop: (x, y, vx, vy).
+SIM_EDGE_CASES = {
+    "vx0-net-trap": (216, 180, 0, 1),
+    "vx0-open-air": (100, 50, 0, -3),
+    "cap": (216, 180, 500, 1),
+    "net-y191": (216, 191, 3, 2),
+    "net-y192": (216, 192, 3, 2),
+    "net-y191-rising": (200, 191, -2, -1),
+    "net-y192-left": (205, 192, -4, 6),
+    "wall-left": (25, 100, -10, -5),
+    "wall-right": (428, 200, 8, 3),
+    "wall-corner-ceiling": (20, 0, -20, -60),
+}
+
+
+@pytest.mark.parametrize("full_rule", [True, False], ids=["full", "mistake"])
+@pytest.mark.parametrize("case", list(SIM_EDGE_CASES))
+def test_sim_over_sim_step_matches_plain(case, full_rule, host_library, monkeypatch):
+    """(d) ``sim``, a loop over ``sim_step``, == the plain ``sim_loop``."""
+    x, y, vx, vy = SIM_EDGE_CASES[case]
+    live = [0]
+    one_iteration = predict._one_iteration
+
+    def counting(x_, y_, vx_, vy_, count, rule):
+        live[0] += int((vx_ != 0).sum())
+        return one_iteration(x_, y_, vx_, vy_, count, rule)
+
+    monkeypatch.setattr(predict, "_one_iteration", counting)
+    lane = lambda v: torch.tensor([v], dtype=torch.int32)
+    want = int(predict.sim_loop(lane(x), lane(y), lane(vx), lane(vy),
+                                torch.tensor(full_rule))[0])
+    assert host_library.fused_step_host_sim(x, y, vx, vy, int(full_rule)) == want
+    if case.startswith("vx0"):
+        assert live[0] == 0
+    if case == "cap" and not full_rule:
+        assert live[0] == 1000  # the iteration cap ends it, not the ground
+
+
 def to_device(tree, device):
     if torch.is_tensor(tree):
         return tree.to(device)
@@ -228,6 +421,13 @@ def test_rollout_rejects_bad_states():
     with pytest.raises(ValueError, match="multiple of 1024"):
         fused_step.rollout_packed(torch.zeros((fused_step.NFIELDS, 512),
                                               dtype=torch.int32), cfg, 1)
+
+
+def test_counting_instance_is_card_only():
+    cfg = EnvConfig(is_player1_computer=True, is_player2_computer=True)
+    state, _ = PikaZoo(cfg).reset_batch(1, B, device="cpu")
+    with pytest.raises(ValueError, match="card only"):
+        fused_step.rollout_packed_counted(fused_step.pack_state(state, 2), cfg, 1)
 
 
 def test_cpu_call_launches_nothing():
