@@ -13,11 +13,16 @@ live mid-rally state, its landing pool's lane efficiency and its ``-Xptxas
 -v`` figures printed), compares a card trajectory with a CPU trajectory leaf
 by leaf, and trains: the self-play PPO learner through ``make_ppo_trainer`` at full
 width, its minibatch gradients in the fused kernel K1 (bf16), then in the
-row-major kernel K4 and in K1's int8, int8fwd and bf16-backward modes, each
-of those held against its plain version first; then runs the three probe
-tools (the flat landing sims of the compaction probe, the products-only
-floor of K1, the feature-major prototype), each kernel held against its
-plain version and each tool driven through its ``main``.  Every phase
+row-major kernel K4 and in K1's int8, int8fwd, bf16-backward and
+int8fwd+bf16-backward modes, each of those held against its plain version
+first; then runs the three probe tools (the flat landing sims of the
+compaction probe, the products-only floor of K1, the feature-major
+prototype), each kernel held against its plain version and each tool driven
+through its ``main``; then the trainer's user surface: the training CLI
+through the wrappers at full width, run once uninterrupted and once resumed
+from its checkpoint by a second call, the two bit-equal; the committed
+vs-AI policy against the rule AI at the JAX gate's settings; the golden
+trajectory replayed on the card.  Every phase
 prints at least one line; any failure raises and the script exits non-zero.  The line
 before the last lists every kernel with its launches on the main path, its
 error against its plain version, its time, its plain version's time and its
@@ -29,10 +34,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -42,11 +50,14 @@ from pikazoo_tpu_torch.core import fused_step, predict, predict_cuda
 from pikazoo_tpu_torch.core.predict import landing_sims_any
 from pikazoo_tpu_torch.envs import OBS_HIGH, OBS_LOW
 from pikazoo_tpu_torch.envs.pika_volley import EnvState
+from pikazoo_tpu_torch.policies import load_policy, policy_path
 from pikazoo_tpu_torch.tools import compaction_probe, fm_kernel_probe, fm_roofline, k3_probe
 from pikazoo_tpu_torch.tools._timing import HOLD_CYCLES
 from pikazoo_tpu_torch.tools.k1_precision_probe import float64_plain
 from pikazoo_tpu_torch.train import PPOConfig, make_ppo_trainer, ppo
-from pikazoo_tpu_torch.train import fused_update
+from pikazoo_tpu_torch.train import checkpoint, fused_update
+from pikazoo_tpu_torch.train import run as train_run
+from pikazoo_tpu_torch.train.evaluate import evaluate_vs_computer
 from pikazoo_tpu_torch.train.fused_update import fused_ppo_grads, fused_ppo_grads_fm
 from pikazoo_tpu_torch.train.networks import ActorCritic, apply_fm, dense_layers
 
@@ -438,6 +449,8 @@ VS_AI = PPOConfig(num_envs=8192, rollout_length=128, num_minibatches=8,
 # K1's modes other than bf16: (kernels-line name, keywords, tolerance).
 K1_MODES = {"int8": dict(quant="int8"), "int8fwd": dict(quant="int8fwd"),
             "bwd_bf16": dict(bwd_bf16=True)}
+# bwd_bf16's case after the int8fwd forward: the int8fwd+bwd_bf16 mode.
+FWD8_CASE = "full width, int8fwd forward"
 # P3 keeps dvalue in f32 where K1 rounds it to bf16; a kernel that rounded it
 # would sit ~1e-4 off its plain version on the leaves the value head reaches
 # (tests/test_torch_fm_kernel_probe.py), inside BF16_TOL.  This bound on
@@ -1155,6 +1168,167 @@ def probe_p3(card: str):
     return (err, *timed, grad_bound(P2_FULL[0] * P2_FULL[1]), launches)
 
 
+# The trainer's user surface (phases 16-18).
+# The CLI's wrappers at full width: SimplifyAction over RewardByBallPosition,
+# K1 bf16 (auto), hidden (256, 256), 16 K1 calls an update.
+SHAPING = ("0.5", "-0.25", "0.125", "0", "0", "0.125", "-0.25", "0.5")
+WRAPPED_ARGV = ["--device", "cuda", "--num-envs", "65536", "--rollout-length", "128",
+                "--simplify-actions", "--ball-shaping", *SHAPING, "--seed", "0"]
+WRAPPED_UPDATES = 3   # run A uninterrupted; run B 2, killed, then resumed for 1
+# tests/test_trained_artifact.py:31-37, the JAX gate of the vs-AI policy.
+EVAL_GATE = dict(num_envs=16, max_frames=8000, winning_score=5, greedy=False, seed=3)
+EVAL_WIN_RATE, EVAL_GAMES = 0.9, 8
+GOLDEN = Path(__file__).resolve().parent / "tests" / "golden_trajectory.npz"
+
+
+def named_tensors(tree, prefix=""):
+    """(name, tensor) of a runner's leaves, a generator as its state, an int
+    as a tensor."""
+    if isinstance(tree, torch.Generator):
+        yield prefix + "key", tree.get_state()
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_tensors(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, tuple):
+        for f, sub in zip(tree._fields, tree):
+            yield from named_tensors(sub, f"{prefix}{f}.")
+    else:
+        yield prefix.rstrip("."), torch.as_tensor(tree)
+
+
+def runners_differ(a, b) -> list:
+    """The leaves of two runners that are not bit-equal (dtype, shape, value)."""
+    return [name for (name, x), (_, y) in zip(named_tensors(a), named_tensors(b), strict=True)
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x.cpu(), y.cpu())]
+
+
+def k1_counts() -> dict:
+    return {"by_mode": dict(fused_ppo_grads_fm.launches_by_mode),
+            "by_kernel": dict(fused_ppo_grads_fm.launches_by_kernel),
+            "fused_ppo_grads": fused_ppo_grads.launches,
+            "landing_sims_batched": predict_cuda.landing_sims_batched.launches,
+            "fused_rollout": fused_rollout.launches}
+
+
+def wrapped_training(card: str):
+    """Phase 16: the CLI's ``main`` through the wrappers at B=65536, run A
+    uninterrupted and run B stopped after a checkpoint and resumed by a
+    second ``main``; the two final runners bit-equal, K1 bf16 launched 16
+    times an update (A and B once a chunk) in each, nothing else; the
+    checkpoint's save and restore timed at this width."""
+    cfg = dataclasses.replace(LEARNER, num_actions=13)
+    calls = WRAPPED_UPDATES * cfg.update_epochs * cfg.num_minibatches
+    chunks = WRAPPED_UPDATES * k1_chunks(cfg)
+    want = {"by_mode": {"none": calls}, "by_kernel": {"bf16_chain": chunks, "bf16_dw": chunks},
+            "fused_ppo_grads": 0, "landing_sims_batched": 0, "fused_rollout": 0}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+        runs, counts = {}, {}
+        for run, steps in (("A", [(WRAPPED_UPDATES, WRAPPED_UPDATES)]),
+                           ("B", [(WRAPPED_UPDATES - 1, WRAPPED_UPDATES - 1), (1, 1)])):
+            zero_counts()
+            t0 = time.perf_counter()
+            for i, (updates, every) in enumerate(steps):
+                if i:
+                    # The second main call starts from the checkpoint alone.
+                    restorable = checkpoint.latest_restorable(os.path.join(tmp, run, "latest"))
+                    if restorable is None:
+                        raise AssertionError(f"phase 16 run {run}: no checkpoint to resume")
+                runs[run] = train_run.main(WRAPPED_ARGV + [
+                    "--updates", str(updates), "--checkpoint-dir", os.path.join(tmp, run),
+                    "--checkpoint-every", str(every)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts[run] = k1_counts()
+            got = {k: ({m: n for m, n in v.items() if n} if isinstance(v, dict) else v)
+                   for k, v in counts[run].items()}
+            if got != want:
+                raise AssertionError(f"phase 16 run {run}: launches {got}, want {want}")
+            print(f"phase 16 wrapped CLI run {run}: {' + '.join(str(u) for u, _ in steps)} "
+                  f"update(s) at B={cfg.num_envs} in {seconds:.3f} s, launches {got} [{card}]")
+        a, b = runs["A"], runs["B"]
+        if a.update_index != WRAPPED_UPDATES or b.update_index != WRAPPED_UPDATES:
+            raise AssertionError(f"phase 16: update index {a.update_index} / {b.update_index}")
+        if a.params["layers.2.kernel"].shape[1] != 13:
+            raise AssertionError("phase 16: the policy head is not SimplifyAction's 13 actions")
+        differ = runners_differ(a, b)
+        if differ:
+            raise AssertionError(f"phase 16: the resumed run differs from the uninterrupted "
+                                 f"one in {differ}")
+        path = os.path.join(tmp, "timed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(path, a)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = checkpoint.restore(path, b)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if runners_differ(a, back) or back.env_state.scores.device.type != "cuda":
+            raise AssertionError("phase 16: a restored checkpoint differs or left the card")
+        size = os.path.getsize(path)
+    n = sum(1 for _ in named_tensors(a))
+    print(f"phase 16 resume: run B (2 updates, checkpoint, a second main for 1) == run A "
+          f"(3 updates) on all {n} leaves, bit for bit; checkpoint at B={cfg.num_envs}: save "
+          f"{save_s:.3f} s, restore {restore_s:.3f} s, {size} bytes [{card}]")
+
+
+def evaluate_policy(card: str):
+    """Phase 17: the committed vs-AI policy against the rule AI at the JAX
+    gate's settings, sampled: at least 8 games, win rate above 0.9, one K2
+    launch a frame and no other kernel; ms a frame."""
+    net = load_policy(policy_path("vs_ai_policy"), device="cuda")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    r = evaluate_vs_computer(net, device="cuda", **EVAL_GATE)
+    games, wins, rate = int(r.games), int(r.policy_wins), float(r.win_rate)
+    seconds = time.perf_counter() - t0
+    got = k1_counts()
+    frames = EVAL_GATE["max_frames"]
+    if (got["landing_sims_batched"] != frames or got["fused_rollout"] or got["fused_ppo_grads"]
+            or any(got["by_mode"].values())):
+        raise AssertionError(f"phase 17: launches {got}, want {frames} landing launches only")
+    if games < EVAL_GAMES or not rate > EVAL_WIN_RATE:
+        raise AssertionError(f"phase 17: vs_ai_policy won {wins}/{games} ({rate:.4f}); the "
+                             f"gate is > {EVAL_WIN_RATE} over >= {EVAL_GAMES} games")
+    print(f"phase 17 vs_ai_policy.pt vs rule AI ({EVAL_GATE}): {wins}/{games} = {rate:.4f} "
+          f"(gate > {EVAL_WIN_RATE}), mean score diff {float(r.mean_score_diff):+.4f}; "
+          f"{frames} frames in {seconds:.3f} s = {seconds * 1e3 / frames:.3f} ms a frame; "
+          f"landing_sims_batched {got['landing_sims_batched']} launches [{card}]")
+
+
+def golden_on_card(card: str):
+    """Phase 18: tests/test_golden_trajectory.py's recording replayed on the
+    card (B=4, AI seats, serve random, key 2026, actions from
+    default_rng(816)): observations, rewards, final scores and draw
+    counters bit-equal; one K2 launch a frame."""
+    data = np.load(GOLDEN)
+    env = PikaZoo(EnvConfig(auto_reset=True, winning_score=3, serve="random",
+                            is_player1_computer=True, is_player2_computer=True))
+    frames, batch = data["obs"].shape[:2]
+    state, _ = env.reset_batch(2026, batch, device="cuda")
+    rng = np.random.default_rng(816)
+    zero_counts()
+    obs, rewards = [], []
+    for _ in range(frames):
+        actions = torch.from_numpy(rng.integers(0, 18, size=(batch, 2)).astype(np.int32))
+        state, ts = env.step_batch(state, actions.cuda())
+        obs.append(ts.obs)
+        rewards.append(ts.rewards)
+    launches = predict_cuda.landing_sims_batched.launches
+    for name, got in (("obs", torch.stack(obs)), ("rewards", torch.stack(rewards)),
+                      ("final_scores", state.scores), ("final_draws", state.draw_counter)):
+        bad = np.argwhere(got.cpu().numpy() != data[name])
+        if len(bad):
+            raise AssertionError(f"phase 18 golden trajectory: {name} diverged at "
+                                 f"{bad[0].tolist()}")
+    if launches != frames:
+        raise AssertionError(f"phase 18: {launches} landing launches in {frames} frames")
+    print(f"phase 18 golden trajectory: B={batch} x {frames} frames on the card bit-equal to "
+          f"tests/golden_trajectory.npz (obs, rewards, final scores and draws); "
+          f"{launches} landing launches [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
@@ -1346,7 +1520,7 @@ def main() -> int:
             chains_apart(full, tanh_kw, card)
             cases.append(("ragged", k1_inputs(3, 1000, "relu", 25),
                           dict(kw, activation="relu")))
-            cases.append(("full width, int8fwd forward", full, dict(kw, quant="int8fwd")))
+            cases.append((FWD8_CASE, full, dict(kw, quant="int8fwd")))
             # Its two kernels stage by stage, and its distance from float64
             # (the head's dh on the tensor cores would put it off): the call's
             # after the bf16 forward; kernel A's chain on its own operands at
@@ -1375,9 +1549,10 @@ def main() -> int:
             # Its two kernels stage by stage, full width and ragged.
             for case, args, case_kw in cases:
                 hold_split("K1 int8fwd", case, args, case_kw, card, 11)
-        m_err = max(compare_grads(f"K1 {name} [{case}]", fused_ppo_grads_fm, plain_fm,
-                                  args, case_kw, BF16_TOL, card, 11)
-                    for case, args, case_kw in cases)
+        errs = {case: compare_grads(f"K1 {name} [{case}]", fused_ppo_grads_fm, plain_fm,
+                                    args, case_kw, BF16_TOL, card, 11)
+                for case, args, case_kw in cases}
+        m_err = max(e for case, e in errs.items() if case != FWD8_CASE)
         m_ms, m_plain_ms = time_grads(f"K1 {name} T=32 N=131072", fused_ppo_grads_fm,
                                       plain_fm, full, kw, card, 11)
         mode_stats[name] = (m_err, m_ms, m_plain_ms)
@@ -1390,8 +1565,10 @@ def main() -> int:
         if name == "bwd_bf16":
             split_times("K1 bwd_bf16", full, kw, card, m_ms, 11)
             fwd8_kw = dict(kw, quant="int8fwd")
-            fwd8_ms, _ = time_grads("K1 int8fwd+bwd_bf16 T=32 N=131072", fused_ppo_grads_fm,
-                                    plain_fm, full, fwd8_kw, card, 11)
+            fwd8_ms, fwd8_plain_ms = time_grads("K1 int8fwd+bwd_bf16 T=32 N=131072",
+                                                fused_ppo_grads_fm, plain_fm, full, fwd8_kw,
+                                                card, 11)
+            mode_stats["int8fwd+bwd_bf16"] = (errs[FWD8_CASE], fwd8_ms, fwd8_plain_ms)
             split_times("K1 int8fwd+bwd_bf16", full, fwd8_kw, card, fwd8_ms, 11)
         del cases
     del full, ragged_tanh
@@ -1419,21 +1596,22 @@ def main() -> int:
             ("int8fwd", dataclasses.replace(LEARNER, fused_update="fm",
                                             update_quant="int8fwd")),
             ("bwd_bf16", dataclasses.replace(LEARNER, fused_update="fm",
-                                             update_bwd_bf16=True))):
+                                             update_bwd_bf16=True)),
+            ("int8fwd+bwd_bf16", dataclasses.replace(LEARNER, fused_update="fm",
+                                                     update_quant="int8fwd",
+                                                     update_bwd_bf16=True))):
         runner, train_step, run, _ = train(EnvConfig(auto_reset=True), cfg, 1,
                                            f"self-play, K1 {name}", card, phase=12)
         calls = cfg.update_epochs * cfg.num_minibatches
         expect_launches(f"self-play, K1 {name}", run, name, k1=calls)
         mode_launches[name] = run["fused_ppo_grads_fm"][name]
         # Which kernels served, each chunk of frames: the int8 mode's split
-        # kernels (A, S a layer, Q and the head's B), int8fwd's and
-        # bwd_bf16's the bf16 mode's (A with the int8 forward or the bf16
-        # chain, B).
+        # kernels (A, S a layer, Q and the head's B), the other modes' the
+        # bf16 mode's (A with the int8 forward, the bf16 chain or both, B).
         chunks = k1_chunks(cfg)
-        want = {"int8": {"int8_chain": chunks, "int8_requant": len(cfg.hidden) * chunks,
-                         "int8_dw": chunks, "int8_head_dw": chunks},
-                "int8fwd": {"bf16_chain": chunks, "bf16_dw": chunks},
-                "bwd_bf16": {"bf16_chain": chunks, "bf16_dw": chunks}}[name]
+        want = ({"int8_chain": chunks, "int8_requant": len(cfg.hidden) * chunks,
+                 "int8_dw": chunks, "int8_head_dw": chunks} if name == "int8"
+                else {"bf16_chain": chunks, "bf16_dw": chunks})
         expect_kernels(f"self-play, K1 {name}", run["by_kernel"], want, card, 12)
         time_learner_phases(runner, train_step, cfg, card, phase=12)
         del runner, train_step
@@ -1443,6 +1621,13 @@ def main() -> int:
     p1 = probe_p1(live, card)
     p2 = probe_p2(card)
     p3 = probe_p3(card)
+
+    # Phases 16-18: the trainer's user surface.  The wrapped CLI at full
+    # width, killed and resumed; the committed vs-AI policy against the rule
+    # AI (K2 a frame); the golden trajectory on the card.
+    wrapped_training(card)
+    evaluate_policy(card)
+    golden_on_card(card)
 
     ms, plain_ms, k2_bound = timed[f"AI self-play frame {HARVEST_FRAME}"]
     rows = K1_FULL[0] * K1_FULL[1]
@@ -1454,14 +1639,16 @@ def main() -> int:
         ("fused_ppo_grads_fm", "fused_update_bf16.cu", "pikazoo_tpu/train/fused_update.py:504",
          k1_launches, k1_err, k1_ms, k1_plain_ms, grad_bound(rows)),
     ]
-    mode_sources = {"int8": "fused_update_int8.cu", "int8fwd": "fused_update_bf16.cu",
-                    "bwd_bf16": "fused_update_bf16.cu"}
-    for name in K1_MODES:
+    # (source, the forward's precision, which sets the bound)
+    mode_sources = {"int8": ("fused_update_int8.cu", "int8"),
+                    "int8fwd": ("fused_update_bf16.cu", "int8fwd"),
+                    "bwd_bf16": ("fused_update_bf16.cu", "none"),
+                    "int8fwd+bwd_bf16": ("fused_update_bf16.cu", "int8fwd")}
+    for name, (source, forward) in mode_sources.items():
         m_err, m_ms, m_plain = mode_stats[name]
-        entries.append((f"fused_ppo_grads_fm[{name}]", mode_sources[name],
+        entries.append((f"fused_ppo_grads_fm[{name}]", source,
                         "pikazoo_tpu/train/fused_update.py:504", mode_launches[name],
-                        m_err, m_ms, m_plain,
-                        grad_bound(rows, name if name != "bwd_bf16" else "none")))
+                        m_err, m_ms, m_plain, grad_bound(rows, forward)))
     entries.append(("fused_ppo_grads", "k4_split.cu",
                     "pikazoo_tpu/train/fused_update.py:651", k4_launches, k4_err, k4_ms,
                     k4_plain_ms, grad_bound(rows)))

@@ -12,16 +12,23 @@ or without the bf16 backward chain (``csrc/fused_update_bf16.cu``), as
 four in its int8 mode (``csrc/fused_update_int8.cu``), or row-major as two
 (``csrc/k4_split.cu``); all are built with ``nvcc`` at first use into
 ``build/kernels/``.  On the CPU they run as plain PyTorch.  The entry
-points (``PikaZoo.reset`` / ``reset_batch``, ``make_ppo_trainer``, the
-``train.run`` CLI) run on the card unless the caller asks for the CPU.
+points (``PikaZoo.reset`` / ``reset_batch``, ``make_ppo_trainer``,
+``load_policy``, the evaluation functions, the ``train.run`` CLI) run on the
+card unless the caller asks for the CPU.
 
 Layers (bottom up):
   core/      physics of one frame: ball, players, collisions, landing
              simulation, rule AI, draw-slot RNG; the fused rollout
   envs/      the environment: ``PikaZoo.reset_batch`` / ``step_batch``, and
              the learner's ``step_batch_learner{,_fm}``
+  wrappers/  the six wrappers, batch-shaped; the learner path runs through
+             ``SimplifyAction`` and ``RewardByBallPosition``
   train/     the learner: ``ActorCritic``, the fused minibatch gradient,
-             ``make_ppo_trainer``, the ``train.run`` CLI
+             ``make_ppo_trainer``, checkpoint / resume, the evaluation
+             harness, the ``train.run`` CLI
+  policies/  the committed trained policies as ``.pt`` files, ``load_policy``
+  utils/     metrics logging, throughput, ``torch.profiler`` traces, state
+             validation
   convert    EnvState and network weights to and from the JAX package's
              numpy leaves
 """

@@ -12,10 +12,16 @@ Keys are stored as int32 *bit patterns* (``(..., 2)``), so the whole env
 state stays int32; ``pikazoo_tpu_torch.convert`` maps them to and from the
 JAX package's uint32 key data.  The threefry arithmetic runs in int64 masked
 to 32 bits, because torch has no unsigned 32-bit add, shift or remainder.
+
+``split``, ``fold_in`` and ``randint`` are ``jax.random``'s operations on
+threefry key data, bit for bit: the wrappers and the evaluation harness derive
+their keys and the random opponent's actions with them, as the JAX package
+does.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -87,6 +93,57 @@ def key_data(key, device="cpu") -> torch.Tensor:
         raise ValueError(f"key must be an int seed or 2 words, got shape "
                          f"{tuple(words.shape)}")
     return _as_i32_bits(words & _MASK)
+
+
+def _counter_words(key: torch.Tensor, shape: Tuple[int, ...]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``threefry2x32(key, (0, i))`` for ``i`` the flat index into ``shape``:
+    the counter layout of ``jax.random`` under ``jax_threefry_partitionable``
+    (the high word of a 64-bit iota first).  ``key`` is ``K + (2,)``; the
+    two words come back with shape ``K + shape``."""
+    index = torch.arange(math.prod(shape), dtype=torch.int64,
+                         device=key.device).reshape(shape)
+    key = key.reshape(key.shape[:-1] + (1,) * len(shape) + (2,))
+    return threefry2x32(key, torch.zeros_like(index), index)
+
+
+def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, n)`` on key words: ``K + (2,)`` -> ``K + (n,
+    2)`` int32 key bits (for a ``jax.random.key(seed)``, ``key_data(seed)``)."""
+    a, b = _counter_words(key, (n,))
+    return _as_i32_bits(torch.stack([a, b], dim=-1))
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` on key words: the key hashed with
+    the counter ``(0, data mod 2^32)`` (JAX casts ``data`` to uint32
+    first); ``K + (2,)`` int32 bits."""
+    a, b = threefry2x32(key, torch.zeros(key.shape[:-1], dtype=torch.int64,
+                                         device=key.device), data & _MASK)
+    return _as_i32_bits(torch.stack([a, b], dim=-1))
+
+
+def _random_bits(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)``: the two threefry words of
+    each counter xor-ed, as int64 in [0, 2^32)."""
+    a, b = _counter_words(key, shape)
+    return a ^ b
+
+
+def randint(key: torch.Tensor, shape: Tuple[int, ...], lo: int, hi: int
+            ) -> torch.Tensor:
+    """``jax.random.randint(key, shape, lo, hi, int32)`` on key words
+    ``K + (2,)``: int32 of shape ``K + shape`` in ``[lo, hi)``.  JAX's
+    algorithm: two draws of 32 bits from the key's two halves, combined
+    modulo the span through the multiplier ``(2^16 mod span)^2 mod span``,
+    every product and sum in uint32 arithmetic, which wraps."""
+    k = split(key)
+    higher = _random_bits(k[..., 0, :], shape)
+    lower = _random_bits(k[..., 1, :], shape)
+    span = hi - lo if hi > lo else 1
+    multiplier = ((2 ** 16 % span) ** 2 & _MASK) % span
+    offset = ((((higher % span) * multiplier) & _MASK) + lower % span) & _MASK
+    return _as_i32_bits((lo + offset % span) & _MASK)
 
 
 def site_value(key: torch.Tensor, counter: torch.Tensor, upper: int

@@ -30,7 +30,8 @@ from pikazoo_tpu_torch.core.state import (I32, BallState, PlayerInput,
                                           init_ball_construction,
                                           init_player_construction,
                                           round_init_ball, round_init_player)
-from pikazoo_tpu_torch.envs.observations import (assemble_norm_obs_blocked,
+from pikazoo_tpu_torch.envs.observations import (NUM_ACTIONS,
+                                                 assemble_norm_obs_blocked,
                                                  assemble_norm_obs_fm,
                                                  assemble_obs)
 
@@ -164,6 +165,16 @@ def env_frame(cfg: EnvConfig, ds: DrawState, p1: PlayerState,
                        reward_p1, sounds)
 
 
+def batch_keys(key, batch_size: int, device="cuda") -> torch.Tensor:
+    """The ``(batch_size, 2)`` per-env key bits of :meth:`PikaZoo.reset_batch`:
+    env i's key is ``fold_key(key, i)``, as in the JAX package.  ``key`` is
+    an int seed (key data ``[0, seed]``, as ``jax.random.key(seed)``) or
+    2-word key data."""
+    base = key_data(key, device)
+    index = torch.arange(batch_size, dtype=torch.int64, device=base.device)
+    return fold_key(base, index)
+
+
 class PikaZoo:
     """Two-agent Pikachu Volleyball over a batch of environments.
 
@@ -172,6 +183,8 @@ class PikaZoo:
     >>> state, ts = env.step_batch(state, torch.zeros((4096, 2), dtype=torch.int32,
     ...                                                device="cuda"))
     """
+
+    num_actions = NUM_ACTIONS
 
     def __init__(self, config: EnvConfig = EnvConfig()):
         self.config = config
@@ -230,13 +243,9 @@ class PikaZoo:
     def reset_batch(self, key, batch_size: int, device="cuda"
                     ) -> Tuple[EnvState, TimeStep]:
         """Start ``batch_size`` independent games on ``device`` (the card
-        unless the caller asks for the CPU).  Env i's key
-        is ``fold_key(key, i)``, as in the JAX package, so both start from
-        identical states.  ``key`` is an int seed (key data ``[0, seed]``, as
-        ``jax.random.key(seed)``) or 2-word key data."""
-        base = key_data(key, device)
-        index = torch.arange(batch_size, dtype=torch.int64, device=base.device)
-        return self._reset_from_keys(fold_key(base, index))
+        unless the caller asks for the CPU), keyed by :func:`batch_keys`, so
+        the port and the JAX package start from identical states."""
+        return self._reset_from_keys(batch_keys(key, batch_size, device))
 
     def _advance(self, state: EnvState, a1: torch.Tensor, a2: torch.Tensor
                  ) -> Tuple[EnvState, FrameResult]:
@@ -311,11 +320,15 @@ class PikaZoo:
                               a2: torch.Tensor
                               ) -> Tuple[EnvState, torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
-        """Like :meth:`step_batch_learner`, with the observations
-        feature-major: (35, 2B) bf16, seat-blocked columns.  The layout the
-        PPO rollout and the fused gradient kernel consume."""
+        """The PPO rollout's step: like :meth:`step_batch_learner`, with the
+        observations feature-major, (35, 2B) bf16 with seat-blocked columns
+        (the layout the fused gradient kernel consumes), and both seats'
+        rewards, (2B,) float32 seat-blocked like the columns.  JAX's returns
+        player 1's int32 reward alone; both seats' let a wrapper shape each
+        seat's reward on this path (``wrappers.RewardByBallPosition``)."""
         new_state, fr = self._advance(state, a1, a2)
         norm_obs = assemble_norm_obs_fm(
             new_state.p1, new_state.p2, new_state.ball,
             new_state.power_hit_key_down_prev)
-        return new_state, norm_obs, fr.reward_p1, fr.game_ended
+        reward = fr.reward_p1.to(torch.float32)
+        return new_state, norm_obs, torch.cat([reward, -reward]), fr.game_ended

@@ -187,7 +187,10 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
                      mesh=None):
     """Build ``(init_fn, train_step, network)``.
 
-    ``init_fn(seed) -> PPORunnerState`` and ``train_step(runner) ->
+    ``env`` is a :class:`PikaZoo` or a stack of the wrappers that transform
+    the learner step (``wrappers.SimplifyAction``,
+    ``wrappers.RewardByBallPosition``); ``cfg.num_actions`` must be the
+    env's.  ``init_fn(seed) -> PPORunnerState`` and ``train_step(runner) ->
     (runner, TrainMetrics)``, everything on ``device`` (the card unless the
     caller asks for the CPU).  ``train_step``
     carries the phases as attributes, as the JAX trainer does:
@@ -207,6 +210,17 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
         raise ValueError(f"unknown learner_seats {cfg.learner_seats!r}")
     if cfg.rollout_length % cfg.num_minibatches:
         raise ValueError("num_minibatches must divide rollout_length")
+    # The rollout steps the env through step_batch_learner_fm: every layer of
+    # a wrapper stack must apply its transform there, or it would be skipped.
+    layer = env
+    while layer is not None:
+        if not hasattr(layer, "step_batch_learner_fm"):
+            raise ValueError(f"{type(layer).__name__} has no learner step "
+                             "(step_batch_learner_fm): the rollout would bypass it")
+        layer = getattr(layer, "env", None)
+    if cfg.num_actions != env.num_actions:
+        raise ValueError(f"num_actions={cfg.num_actions}, but the env takes "
+                         f"{env.num_actions} actions")
     if cfg.fused_update == "on":
         resolved = "row"
     elif cfg.fused_update == "fm" or (cfg.fused_update == "auto" and device.type == "cuda"):
@@ -278,15 +292,14 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
             done=torch.empty((T, 2 * n), dtype=f32, device=device))
         for t in range(T):
             action, log_prob, value = policy_sample(params, norm, uniforms[t])
-            env_state, next_norm, reward1, terminated = env.step_batch_learner_fm(
+            env_state, next_norm, reward, terminated = env.step_batch_learner_fm(
                 env_state, action[:n], action[n:])
             done = (terminated == 1).to(f32)
-            reward1 = reward1.to(f32)
             traj.obs[t] = norm
             traj.action[t] = action
             traj.log_prob[t] = log_prob
             traj.value[t] = value
-            traj.reward[t] = torch.cat([reward1, -reward1])
+            traj.reward[t] = reward
             traj.done[t] = torch.cat([done, done])
             norm = next_norm
         return (env_state, norm), traj

@@ -2,20 +2,25 @@
 
 Usage:
     python -m pikazoo_tpu_torch.train.run --num-envs 65536 --updates 100 \\
-        --metrics out.jsonl
+        --checkpoint-dir ckpt --metrics out.jsonl
 
-Counterpart of ``pikazoo_tpu.train.run`` without the flags whose modules are
-not ported yet (checkpointing, multi-host, wrappers, profiling).  Runs on
-the card (``--device cuda``, the default) and raises when there is none;
-``--device cpu`` runs on the CPU.  Prints one line per update and, with
-``--metrics``, writes one JSON object per update (after a header line with
-the resolved dispatch).
+Counterpart of ``pikazoo_tpu.train.run`` with every flag but
+``--distributed`` (the device mesh is not ported).  Runs on the card
+(``--device cuda``, the default) and raises when there is none; ``--device
+cpu`` runs on the CPU.  ``--simplify-actions`` and ``--ball-shaping`` train
+through the wrappers, which the trainer's rollout applies.  With
+``--checkpoint-dir`` the run resumes from the newest checkpoint there
+(``<dir>/latest``) and writes one every ``--checkpoint-every`` updates; a
+resumed run equals an uninterrupted one bit for bit.  ``--metrics`` writes
+the JAX CLI's JSONL: a header with the resolved dispatch and the device's
+name, then one record an update.  ``--profile-dir`` traces update 3 of the
+run with ``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
+import os
 import time
 
 import torch
@@ -31,9 +36,13 @@ def parse_args(argv=None):
     p.add_argument("--winning-score", type=int, default=15)
     p.add_argument("--serve", default="winner",
                    choices=("winner", "alternate", "random"))
+    p.add_argument("--simplify-actions", action="store_true",
+                   help="train on the 13-action SimplifyAction space")
     p.add_argument("--vs-ai", action="store_true",
                    help="train seat 1 against the built-in rule AI on seat 2 "
                         "instead of symmetric self-play")
+    p.add_argument("--ball-shaping", type=float, nargs=8, default=None,
+                   metavar="R", help="RewardByBallPosition 8-tuple")
     p.add_argument("--fused-update", default="auto", choices=["auto", "on", "fm", "off"],
                    help="minibatch gradient: auto = the feature-major kernel K1 on "
                         "CUDA, autograd on the CPU; fm = K1; on = the row-major "
@@ -44,14 +53,22 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; cpu on request)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=50)
     p.add_argument("--metrics", default=None, help="JSONL metrics path")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of update 3 into this dir")
     return p.parse_args(argv)
 
 
 def main(argv=None):
+    """Train; returns the final ``PPORunnerState``."""
     args = parse_args(argv)
     from pikazoo_tpu_torch.envs import EnvConfig, PikaZoo
     from pikazoo_tpu_torch.train import PPOConfig, make_ppo_trainer
+    from pikazoo_tpu_torch.train import checkpoint as ckpt
+    from pikazoo_tpu_torch.utils import MetricsLogger, Throughput, profile_trace
+    from pikazoo_tpu_torch.wrappers import RewardByBallPosition, SimplifyAction
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -59,43 +76,62 @@ def main(argv=None):
                            "pass --device cpu to train on the CPU")
     env = PikaZoo(EnvConfig(winning_score=args.winning_score, serve=args.serve,
                             auto_reset=True, is_player2_computer=args.vs_ai))
+    if args.ball_shaping is not None:
+        env = RewardByBallPosition(env, tuple(args.ball_shaping))
+    if args.simplify_actions:
+        env = SimplifyAction(env)
     cfg = PPOConfig(num_envs=args.num_envs, rollout_length=args.rollout_length,
-                    learning_rate=args.learning_rate,
+                    num_actions=env.num_actions, learning_rate=args.learning_rate,
                     learner_seats="p1" if args.vs_ai else "both",
                     fused_update=args.fused_update, shuffle_minibatches=args.shuffle)
     init_fn, train_step, _ = make_ppo_trainer(env, cfg, device=device)
     runner = init_fn(args.seed)
-    header = {"provenance": {**train_step.provenance, "device": str(device),
-                             "device_name": (torch.cuda.get_device_name(device)
-                                             if device.type == "cuda" else "cpu")}}
-    print(json.dumps(header), flush=True)
-    out = open(args.metrics, "w") if args.metrics else None
-    if out:
-        out.write(json.dumps(header) + "\n")
-    steps_per_update = cfg.num_envs * cfg.rollout_length
-    start = time.perf_counter()
-    for update in range(args.updates):
-        t0 = time.perf_counter()
-        runner, metrics = train_step(runner)
+    start_update = 0
+    latest = args.checkpoint_dir and os.path.join(args.checkpoint_dir, "latest")
+    restorable = latest and ckpt.latest_restorable(latest)
+    if restorable:
+        runner = ckpt.restore(restorable, runner)
+        start_update = runner.update_index
+        print(f"resumed from update {start_update}", flush=True)
+    if latest:
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+
+    logger = MetricsLogger(args.metrics)
+    logger.header({"provenance": {
+        **train_step.provenance, "device": str(device),
+        "device_name": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                        else "cpu")}})
+    meter = Throughput(unit_steps=cfg.num_envs * cfg.rollout_length)
+    for update in range(start_update, start_update + args.updates):
+        if args.profile_dir and update == start_update + 3:
+            with profile_trace(args.profile_dir):
+                runner, metrics = train_step(runner)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+        else:
+            runner, metrics = train_step(runner)
         # One transfer of every metric; it also waits for the update to end.
         values = torch.stack([m.float() for m in metrics[:7]]).tolist()
-        seconds = time.perf_counter() - t0
-        row = dict(zip(metrics._fields[:7], values), update=update,
-                   env_steps=metrics.env_steps,
-                   env_steps_per_s=steps_per_update / seconds)
-        print(f"update {update}: loss {row['total_loss']:.4f} entropy "
-              f"{row['entropy']:.4f} kl {row['approx_kl']:.5f} episodes "
-              f"{row['episodes_finished']:.0f} {row['env_steps_per_s']:.0f} "
-              "env-steps/s", flush=True)
-        if out:
-            out.write(json.dumps(row) + "\n")
-            out.flush()
-    if out:
-        out.close()
-    total = time.perf_counter() - start
+        meter.tick()
+        m = dict(zip(metrics._fields[:7], values))
+        logger.log(update, {
+            "loss": m["total_loss"],
+            "policy_loss": m["policy_loss"],
+            "value_loss": m["value_loss"],
+            "entropy": m["entropy"],
+            "approx_kl": m["approx_kl"],
+            "episodes": m["episodes_finished"],
+            "env_steps_per_s": meter.steps_per_s,
+        })
+        if latest and (update + 1) % args.checkpoint_every == 0:
+            t0 = time.perf_counter()
+            ckpt.save(latest, runner)
+            print(f"checkpointed at update {update} "
+                  f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    logger.close()
     print(f"done: {args.updates} updates, "
-          f"{args.updates * steps_per_update / total:.0f} env-steps/s sustained",
-          flush=True)
+          f"{meter.steps_per_s:.0f} env-steps/s sustained", flush=True)
+    return runner
 
 
 if __name__ == "__main__":

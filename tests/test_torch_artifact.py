@@ -61,3 +61,51 @@ def test_vs_ai_policy_carries_across():
     np.testing.assert_allclose(logits.numpy(), want, rtol=1e-2, atol=1e-2)
     agree = (logits.numpy().argmax(-1) == want.argmax(-1)).mean()
     assert agree >= 0.99, agree
+
+
+# How pikazoo_tpu_torch/policies/<name>.pt were made: each artifact restored
+# through the JAX package's checkpoint with its training recipe
+# (tests/test_trained_artifact.py), its params through params_from_flax,
+# saved with torch.save beside hidden, num_actions, activation and
+# learner_seats.
+POLICY_RECIPES = {
+    "vs_ai_policy": (JaxConfig(winning_score=15, auto_reset=True, is_player2_computer=True),
+                     JaxPPOConfig(num_envs=8192, rollout_length=128, num_minibatches=8,
+                                  update_epochs=4, hidden=(256, 256), entropy_coef=0.01,
+                                  learner_seats="p1", learning_rate=5e-4)),
+    "selfplay_policy": (JaxConfig(auto_reset=True),
+                        JaxPPOConfig(num_envs=8192, rollout_length=128)),
+    "selfplay_policy_xl": (JaxConfig(auto_reset=True),
+                           JaxPPOConfig(num_envs=8192, rollout_length=128)),
+}
+
+
+@pytest.mark.parametrize("name", list(POLICY_RECIPES))
+def test_committed_policy_equals_its_artifact(name):
+    """Each committed ``.pt`` == ``params_from_flax`` of its orbax artifact,
+    bit for bit, loads with ``weights_only=True`` and stays well under 1 MB;
+    ``load_policy`` gives the module with those params."""
+    pytest.importorskip("orbax.checkpoint")
+    from pikazoo_tpu.train import checkpoint as ckpt
+    from pikazoo_tpu_torch.policies import load_policy, policy_path
+
+    artifact = os.path.join(os.path.dirname(ARTIFACT), name)
+    if not os.path.isdir(artifact):
+        pytest.skip(f"artifact {name} not present")
+    env_cfg, cfg = POLICY_RECIPES[name]
+    init_fn, _, _ = jax_make_trainer(JaxZoo(env_cfg), cfg)
+    runner = ckpt.restore(artifact, init_fn(jax.random.key(0)))
+    want = params_from_flax(jax.device_get(runner.params))
+
+    path = policy_path(name)
+    assert os.path.getsize(path) < 1_000_000
+    data = torch.load(path, weights_only=True)
+    assert (data["hidden"], data["num_actions"], data["activation"], data["learner_seats"]) == \
+        (list(cfg.hidden), cfg.num_actions, cfg.activation, cfg.learner_seats)
+    assert data["params"].keys() == want.keys()
+    for k, v in want.items():
+        assert data["params"][k].dtype == v.dtype and torch.equal(data["params"][k], v), k
+    net = load_policy(path, device="cpu")
+    assert not net.training
+    for k, v in net.state_dict().items():
+        assert torch.equal(v, want[k]), k

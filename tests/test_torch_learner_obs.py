@@ -53,8 +53,11 @@ def test_learner_steps_bit_exact_over_ai_vs_random_play():
                                       err_msg=f"frame {t}")
         np.testing.assert_array_equal(bf16_bits(got_fm), bf16_bits(fm),
                                       err_msg=f"frame {t}")
-        for got in (got_r, got_r2):
-            np.testing.assert_array_equal(got.numpy(), reward)
+        np.testing.assert_array_equal(got_r.numpy(), reward)
+        # The feature-major step returns both seats' rewards, as float32.
+        assert got_r2.dtype == torch.float32
+        np.testing.assert_array_equal(got_r2.numpy(),
+                                      np.concatenate([reward, -reward]).astype(np.float32))
         for got in (got_term, got_term2):
             np.testing.assert_array_equal(got.numpy(), term)
         rewarded += int((reward != 0).sum())

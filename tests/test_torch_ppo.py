@@ -80,10 +80,10 @@ def test_rollout_frame_by_frame_matches_jax(jax_run):
         checked += int(clear.sum())
 
         a = torch.tensor(np.asarray(traj.action[t]))
-        state, norm, reward1, terminated = env.step_batch_learner_fm(state, a[:B], a[B:])
+        state, norm, reward, terminated = env.step_batch_learner_fm(state, a[:B], a[B:])
         want_next = traj.obs[t + 1] if t + 1 < T else jax_run["last_norm"]
         np.testing.assert_array_equal(bf16_bits(norm), bf16_bits(want_next))
-        np.testing.assert_array_equal(reward1.float().numpy(), traj.reward[t][:B])
+        np.testing.assert_array_equal(reward.numpy(), traj.reward[t])
         np.testing.assert_array_equal((terminated == 1).float().numpy(), traj.done[t][:B])
     assert_same(jax.device_get(jax_run["env_state"]), env_state_to_numpy(state))
     assert checked > 0.9 * T * 2 * B
@@ -244,6 +244,7 @@ def test_cli_writes_metrics(tmp_path, capsys):
                    "--metrics", str(path), "--device", "cpu"])
     lines = [json.loads(line) for line in path.read_text().splitlines()]
     assert lines[0]["provenance"]["fused_update"] == "autograd"
-    assert [row["update"] for row in lines[1:]] == [0, 1]
-    assert all(np.isfinite(row["total_loss"]) for row in lines[1:])
+    # The JAX CLI's records: "step" the update, "loss" the total loss.
+    assert [row["step"] for row in lines[1:]] == [0, 1]
+    assert all(np.isfinite(row["loss"]) for row in lines[1:])
     assert "done: 2 updates" in capsys.readouterr().out
