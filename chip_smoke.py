@@ -255,7 +255,11 @@ def zero_counts():
     fused_ppo_grads.launches = 0
     compaction_probe.flat_sims.launches = 0
     fm_roofline.zero_counts()
-    fm_kernel_probe.fm_grads.launches = 0
+    fm_kernel_probe.zero_counts()
+
+
+# The sources whose kernels' registers, stack and spills phase 2 prints.
+PTXAS_SOURCES = ("fm_roofline.cu", "fm_kernel_probe.cu")
 
 
 def build_all(card: str):
@@ -270,11 +274,23 @@ def build_all(card: str):
     with ThreadPoolExecutor(max_workers=len(libraries) + 1) as pool:
         builds = [pool.submit(timed_build, b) for b in libraries]
         usage = pool.submit(k3_probe.instance_lines, _build.CSRC_DIR / "fused_step.cu")
+        notes = {src: [] for src in PTXAS_SOURCES}
+        probes = {src: pool.submit(_build.resource_usage, _build.CSRC_DIR / src, notes[src])
+                  for src in PTXAS_SOURCES}
         for future in builds:
             name, seconds = future.result()
             print(f"phase 2 build: {seconds:.2f} s -> {name} [{card}]")
         for line in usage.result():
             print(f"phase 2 ptxas fused_step.cu: {line}")
+        for src, future in probes.items():
+            for entry, regs, stack, stores, loads in future.result():
+                print(f"phase 2 ptxas {src}: {entry}: {regs} registers, {stack} B stack, spill "
+                      f"stores {stores} B, spill loads {loads} B")
+            # P2's kernel A issues each slice's wgmma back to back only if
+            # ptxas does not serialize them, as it does when a loop count is
+            # not a constant (its performance warning C7520; PERF.md §6).
+            if any("wgmma" in n for n in notes[src]):
+                raise AssertionError(f"phase 2: ptxas serializes wgmma in {src}: {notes[src]}")
 
 
 def rows_differ(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -430,6 +446,11 @@ K1_DW_REL = 1e-5
 # K1 bf16 at full width may sit at most this many times as far from a
 # float64 plain version as the plain version does.
 K1_F64_RATIO = 2.0
+# P2's call from float64 against its plain version's: kernel A sums each
+# product's K on the tensor cores, toward zero, before its bf16 round, and
+# kernel B sums fm_roofline.RLEN slices so: 3.0x at RLEN 1 on an H100 (PERF.md
+# §6), past K1_F64_RATIO.  Held here so that it does not drift further.
+P2_F64_RATIO = 3.5
 # K1 int8's kernels A and S against their plain version: an integer operand
 # (x_q, h_q, dp_q) may differ by one step only where its f32 value lies on a
 # rounding boundary that the two sides' last bits put on opposite sides (a
@@ -457,6 +478,15 @@ FWD8_CASE = "full width, int8fwd forward"
 # those leaves tells the two apart.
 P3_VALUE_PATH = ("dW1", "db1", "dW2", "db2", "dWv", "dbv")
 P3_VALUE_PATH_REL = 2e-5
+# P3's stage hold leaves out the columns where kernel and plain version may
+# take different branches of the clip: those whose branch differs between
+# the two sides' h2 (a bf16 flip moves the logits by ~1e-4), and those whose
+# ratio lies this close to an edge (the two compute it from f32 sums in
+# another order, ~1e-7 apart).  A column on the other side of an edge
+# changes its dlogits by the whole policy term (~1e-8 against ~1e-11 at full
+# width): 3 such columns of 4,194,304 put dheads 2e-3 from the plain
+# version's (relative L2, measured on an H100).
+CLIP_EDGE = 1e-5
 
 
 def k1_inputs(frames: int, cols: int, activation: str, seed: int):
@@ -524,16 +554,19 @@ def compare_grads(label: str, fn, plain, args, kw, tol, card: str, phase: int):
     return err
 
 
-def operand_distance(got: torch.Tensor, want: torch.Tensor):
+def operand_distance(got: torch.Tensor, want: torch.Tensor, keep=None):
     """(relative L2, cos) of two tensors, summed in float64 a frame and
     OPERAND_COLS columns at a time for the split designs' (rows, T, N)
-    workspace operands (K4's: T = 1, N = M)."""
+    workspace operands (K4's: T = 1, N = M); ``keep`` (T, N) bool: only
+    those columns."""
     got, want = (x.reshape(x.shape[0], -1, x.shape[-1]) for x in (got, want))
     dd = gg = ww = gw = 0.0
     for t in range(got.shape[1]):
         for c0 in range(0, got.shape[2], OPERAND_COLS):
             g = got[:, t, c0:c0 + OPERAND_COLS].double()
             w = want[:, t, c0:c0 + OPERAND_COLS].double()
+            if keep is not None:
+                g, w = (x * keep[t, c0:c0 + OPERAND_COLS] for x in (g, w))
             dd += float((g - w).square().sum())
             gg += float(g.square().sum())
             ww += float(w.square().sum())
@@ -1099,49 +1132,240 @@ def mm_bound(rows: int, f: int = 35, h: int = 256, a: int = 18):
     return bound(nbytes, {"bf16": rows * ops})
 
 
+def p2_split_floor(rows: int, f: int = 35):
+    """(ms, bytes) of P2's split design's own floor by bytes at HIDDEN: kernel
+    A reads the observations and writes the workspace (x, h1, h2, dl, dh2,
+    dh1), kernel B reads it once."""
+    ws = 2 * fm_roofline.ws_rows(*fm_roofline._widths(f, *HIDDEN, fm_roofline.A))[-1]
+    nbytes = rows * (f * 2 + 2 * ws)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def hold_p2_split(label: str, obs, weights, phased: bool, card: str):
+    """P2's two kernels, each against its plain version on the card: kernel A
+    (``mm_chain``, the whole minibatch) against ``mm_chain_plain``, each
+    operand within BF16_TOL's relative L2 and cos, the workspace zero in its
+    padded rows (x past F, dl past A) and columns (past N); then kernel B
+    (``mm_dw``) on kernel A's own operands against ``mm_dw_plain`` on them,
+    each dW within K1_DW_REL.  Raises on the first miss."""
+    _, rel_l2, min_cos = BF16_TOL
+    variant = fm_roofline.VARIANTS[int(phased)]
+    got = fm_roofline.mm_chain(obs, *weights, phased=phased)
+    want = fm_roofline.mm_chain_plain(obs, *weights)
+    torch.cuda.synchronize()
+    worst_rel, worst_cos = 0.0, 1.0
+    for name, g, w in zip(fm_roofline.MMChain._fields, got, want):
+        rel, cos = operand_distance(g, w)
+        if not (rel <= rel_l2 and cos >= min_cos):
+            raise AssertionError(f"P2 {variant} kernel A [{label}]: {name} relative L2 {rel:.3e}, "
+                                 f"cos {cos:.8f}")
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+    del want
+    t_mb, f, n = obs.shape
+    rows = fm_roofline.ws_rows(*fm_roofline._widths(f, *HIDDEN, weights[2].shape[1]))
+    ws = fm_roofline.mm_chain.workspace.view(rows[-1], t_mb, -1)
+    pad = (int((ws[:, :, n:] != 0).sum()) + int((ws[f:rows[1], :, :n] != 0).sum())
+           + int((ws[rows[3] + weights[2].shape[1]:rows[4], :, :n] != 0).sum()))
+    if pad:
+        raise AssertionError(f"P2 {variant} kernel A [{label}]: {pad} padded workspace entries "
+                             f"are not zero")
+    dw = fm_roofline.mm_dw(got)
+    dw_p = fm_roofline.mm_dw_plain(got)
+    torch.cuda.synchronize()
+    rels = {name: float((g.double() - w.double()).norm() / w.double().norm())
+            for name, g, w in zip(("dW1", "dW2", "dWp"), dw, dw_p)}
+    worst_dw = max(rels, key=rels.get)
+    if rels[worst_dw] > K1_DW_REL:
+        raise AssertionError(f"P2 kernel B [{label}]: {worst_dw} relative L2 {rels[worst_dw]:.3e} "
+                             f"> {K1_DW_REL}")
+    print(f"phase 14 P2 {variant} kernel A vs mm_chain_plain [{label}], obs "
+          f"{'x'.join(map(str, obs.shape))}: worst operand relative L2 {worst_rel:.3e} cos "
+          f"{worst_cos:.8f}, padded rows and columns zero; kernel B vs mm_dw_plain on kernel A's "
+          f"operands: worst {worst_dw} relative L2 {rels[worst_dw]:.3e} [{card}]")
+
+
+def float64_line(label: str, got, plain, exact, names, card: str, phase: int,
+                 ratio: float | None = None):
+    """Print the worst leaf's distance from a float64 reference, of the
+    kernel and of the plain version; with ``ratio``, raise if the kernel's
+    is more than ``ratio`` times the plain version's."""
+    dist = lambda g: max((float((a.double() - e.double()).norm() / e.double().norm()), k)
+                         for k, a, e in zip(names, g, exact))
+    kd, pd = dist(got), dist(plain)
+    if ratio is not None and kd[0] > ratio * pd[0]:
+        raise AssertionError(f"{label} {kd[0]:.3e} ({kd[1]}) from float64, plain {pd[0]:.3e}: "
+                             f"more than {ratio}x")
+    held = "" if ratio is None else f", ratio {kd[0] / pd[0]:.3f} <= {ratio}"
+    print(f"phase {phase} {label} vs a float64 plain version: kernel worst leaf {kd[0]:.3e} "
+          f"({kd[1]}), plain {pd[0]:.3e} ({pd[1]}){held} [{card}]")
+
+
 def probe_p2(card: str):
-    """P2 on the card at the JAX probe's size: both orders vs plain, the
-    times of kernel, plain, K1 bf16 on the same inputs and the eight
-    torch.matmul calls, and the tool's main with the counts from 0.
-    Returns (err, ms, plain_ms, bound, launches)."""
+    """P2 on the card at the JAX probe's size: both variants vs plain (and
+    ragged), each stage vs its plain version, the distance from float64, the
+    rounding lengths of kernel B, the chunk sizes, the times of kernel,
+    kernels A and B, plain, K1 bf16 on the same inputs and the eight
+    torch.matmul calls, and the tool's main with the counts from 0.  Returns
+    (err, ms of mm_grads' default variant, phased, plain_ms, bound, launches,
+    library_ms)."""
     obs, W1, W2, Wp = fm_roofline.make_inputs(*P2_FULL, 0, "cuda")
+    weights = (W1, W2, Wp)
     names = ("dW1", "dW2", "dWp")
-    plain = lambda: fm_roofline.mm_grads_plain(obs, W1, W2, Wp)
+    plain = lambda: fm_roofline.mm_grads_plain(obs, *weights)
     err, ms = 0.0, {}
+    ragged = fm_roofline.make_inputs(*P3_RAGGED, 3, "cuda")
     for variant in fm_roofline.VARIANTS:
-        kernel = lambda: fm_roofline.mm_grads(obs, W1, W2, Wp, phased=variant == "phased")
+        phased = variant == "phased"
+        kernel = lambda: fm_roofline.mm_grads(obs, *weights, phased=phased)
         err = max(err, hold_leaves(f"mm_grads {variant} [T=32 N=131072]", names, kernel, plain,
                                    card, 14)[2])
+        err = max(err, hold_leaves(f"mm_grads {variant} [ragged T=3 N=1000]", names,
+                                   lambda: fm_roofline.mm_grads(*ragged, phased=phased),
+                                   lambda: fm_roofline.mm_grads_plain(*ragged), card, 14)[2])
+        hold_p2_split("T=32 N=131072", obs, weights, phased, card)
+        hold_p2_split("ragged T=3 N=1000", ragged[0], ragged[1:], phased, card)
         ms[variant] = time_grads(f"mm_grads {variant}", kernel, plain, (), {}, card, 14)
-    k1_args = fm_roofline.k1_inputs(obs, W1, W2, Wp, 1)
+    # From here on mm_grads' default variant, phased: the kernels line's.
+    float64_line("mm_grads", fm_roofline.mm_grads(obs, *weights), plain(),
+                 fm_roofline.mm_grads_float64(obs, *weights), names, card, 14, P2_F64_RATIO)
+    table = fm_roofline.rounding_table(obs, *weights)
+    chunks = {c: min(cuda_ms(lambda: fm_roofline._launch(obs, *weights, True, chunk_cols=c), 3)
+                     for _ in range(2))
+              for c in (16384, 131072)}
+    t_mb, f, n = obs.shape
+    widths = fm_roofline._widths(f, *HIDDEN, fm_roofline.A)
+    chunk = fm_roofline._chunk(t_mb, n, fm_roofline.CHUNK_COLS)
+    ws = fm_roofline._workspace(widths, chunk, obs.device)
+    padded = fm_roofline._padded(*weights, *widths)
+    stage = lambda st, rlen=fm_roofline.RLEN: min(
+        cuda_ms(lambda: fm_roofline._call(obs, padded, widths, phased=True, chunk=chunk, ws=ws,
+                                          stages=st, rlen=rlen), 3) for _ in range(2))
+    stage_ms = {st: stage(st) for st in (1, 2)}
+    rows = {k: [float(f"{d:.3e}") for d in v] + ([round(stage(2, k), 3)] if k >= 0 else [])
+            for k, v in table.items()}
+    del ws
+    print(f"phase 14 P2 kernel B's rounding lengths (slices of 64 columns a fresh accumulation; "
+          f"0: a block's whole range; -1: the plain versions): [kernel B on kernel A's operands, "
+          f"the call; worst dW relative L2 from float64], kernel B's ms over the wrapper's chunks: "
+          f"{json.dumps(rows)}; the wrapper's {fm_roofline.RLEN} [{card}]")
+    k1_args = fm_roofline.k1_inputs(obs, *weights, 1)
     k1_ms = min(cuda_ms(lambda: fused_ppo_grads_fm(*k1_args, **fm_roofline.K1_KW), 5)
                 for _ in range(2))
+    del k1_args
     x_all = obs.permute(1, 0, 2).reshape(obs.shape[1], -1)
-    bw = [w.to(torch.bfloat16) for w in (W1, W2, Wp)]
+    bw = [w.to(torch.bfloat16) for w in weights]
     mm_ms = min(cuda_ms(lambda: fm_roofline.matmul_sequence(x_all, *bw), 5) for _ in range(2))
     del x_all
     b = mm_bound(P2_FULL[0] * P2_FULL[1])
-    chain, plain_ms = ms["chain"][0], min(ms["chain"][1], ms["phased"][1])
-    print(f"phase 14 time K1 bf16 (fused_update_bf16.cu) on the same obs and weights "
-          f"{k1_ms:.3f} ms; the products alone in K1's first, one-kernel design (P2 chain) "
-          f"{chain:.3f} ms; 8 torch.matmul calls {mm_ms:.3f} ms; bound {b[0]:.4f} ms by {b[1]} "
-          f"[{card}]")
+    floor_ms, nbytes = p2_split_floor(P2_FULL[0] * P2_FULL[1])
+    kernel_ms, plain_ms = ms["phased"][0], min(v[1] for v in ms.values())
+    print(f"phase 14 time P2 (fm_roofline.cu, wgmma + TMA): chain {ms['chain'][0]:.3f} ms, phased "
+          f"{ms['phased'][0]:.3f} ms; phased: kernel A {stage_ms[1]:.3f} ms + kernel B "
+          f"{stage_ms[2]:.3f} ms over chunks of {fm_roofline.CHUNK_COLS} columns (chunks of "
+          f"16384: {chunks[16384]:.3f} ms, of 131072: {chunks[131072]:.3f} ms); 8 torch.matmul calls "
+          f"{mm_ms:.3f} ms; K1 bf16 on the same obs and weights {k1_ms:.3f} ms; the design's floor "
+          f"by bytes {floor_ms:.3f} ms ({nbytes / 1e9:.2f} GB), the function's bound {b[0]:.4f} ms "
+          f"by {b[1]} [{card}]")
     zero_counts()
     if fm_roofline.main(["--steps", "2", "--iters", "2"]):
         raise AssertionError("fm_roofline main failed")
     launches = fm_roofline.mm_grads.launches
-    if not all(fm_roofline.mm_grads.launches_by_variant.values()):
-        raise AssertionError(f"fm_roofline main: launches {fm_roofline.mm_grads.launches_by_variant}")
+    by_kernel = fm_roofline.mm_grads.launches_by_kernel
+    if not all(fm_roofline.mm_grads.launches_by_variant.values()) or not all(by_kernel.values()):
+        raise AssertionError(f"fm_roofline main: launches {fm_roofline.mm_grads.launches_by_variant}"
+                             f", kernels {by_kernel}")
     print(f"phase 14 fm_roofline main: mm_grads launches "
-          f"{fm_roofline.mm_grads.launches_by_variant} [{card}]")
-    return err, chain, plain_ms, b, launches
+          f"{fm_roofline.mm_grads.launches_by_variant}, kernels {by_kernel} [{card}]")
+    return err, kernel_ms, plain_ms, b, launches, mm_ms
+
+
+def clip_branches(args, h2):
+    """The clip's branch of every column, (T, N) int8, from an h2 (H2, T, N)
+    bf16 with the plain version's ops: 2 where the unclipped term is the
+    smaller, plus 1 where the ratio lies inside the clip range; and (T, N)
+    bool, the columns whose ratio lies within CLIP_EDGE of an edge."""
+    params, _, action, lpold, _, adv = args[:6]
+    wp, bp = params[4].to(torch.bfloat16).float(), params[5].float()
+    clip = fm_kernel_probe.CLIP
+    code = torch.empty(action.shape, dtype=torch.int8, device=action.device)
+    near = torch.empty(action.shape, dtype=torch.bool, device=action.device)
+    for t in range(action.shape[0]):
+        logits = torch.matmul(wp.t(), h2[:, t].float()) + bp[:, None]
+        lp = torch.log_softmax(logits, 0).gather(0, action[t][None].long())[0]
+        ratio = torch.exp(lp - lpold[t])
+        unclipped = ratio * adv[t] <= torch.clamp(ratio, 1 - clip, 1 + clip) * adv[t]
+        inside = (ratio > 1 - clip) & (ratio < 1 + clip)
+        code[t] = 2 * unclipped.to(torch.int8) + inside.to(torch.int8)
+        near[t] = ((ratio - (1 - clip)).abs() < CLIP_EDGE) | ((ratio - (1 + clip)).abs() < CLIP_EDGE)
+    return code, near
+
+
+def hold_p3_split(label: str, args, card: str):
+    """P3's two kernels, each against its plain version on the card: kernel A
+    (``p3_chain``, the whole minibatch) against ``p3_chain_plain``: the
+    operands within BF16_TOL's relative L2 and cos on every column but those
+    where the two sides' clip branches may differ (``clip_branches``: a bf16
+    flip in h2 moves a column's ratio by up to ~1e-3), the bias grads, dWv and the loss
+    sums (as means) within BF16_TOL, the workspace's dheads and dpre rows zero
+    past column N; then kernel B (``p3_dw``) on kernel A's own operands against
+    ``k1_dw_plain`` on them, each dW within K1_DW_REL.  Raises on the first
+    miss."""
+    loss_rtol, rel_l2, min_cos = BF16_TOL
+    got = fm_kernel_probe.p3_chain(*args)
+    want = fm_kernel_probe.p3_chain_plain(*args)
+    torch.cuda.synchronize()
+    (code_k, near_k), (code_p, near_p) = clip_branches(args, got.hs[1]), clip_branches(args, want.hs[1])
+    keep = (code_k == code_p) & ~near_k & ~near_p
+    vec = lambda v: v[:, None, None]
+    pairs = [("h1", got.hs[0], want.hs[0], keep), ("h2", got.hs[1], want.hs[1], keep),
+             ("dheads", got.dheads, want.dheads, keep), ("dpre1", got.dpres[0], want.dpres[0], keep),
+             ("dpre2", got.dpres[1], want.dpres[1], keep),
+             *[(k, vec(g), vec(w), None) for k, g, w in (
+                 ("db1", got.db[0], want.db[0]), ("db2", got.db[1], want.db[1]),
+                 ("dbp", got.dbp, want.dbp), ("dbv", got.dbv, want.dbv), ("dWv", got.dwv, want.dwv))]]
+    worst_rel, worst_cos = 0.0, 1.0
+    for name, g, w, k in pairs:
+        rel, cos = operand_distance(g, w, k)
+        if not (rel <= rel_l2 and cos >= min_cos):
+            raise AssertionError(f"P3 kernel A [{label}]: {name} relative L2 {rel:.3e}, cos {cos:.8f}")
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+    inv_m = 1.0 / args[2].numel()
+    if not torch.allclose(got.sums * inv_m, want.sums * inv_m, rtol=loss_rtol, atol=LOSS_ATOL):
+        raise AssertionError(f"P3 kernel A [{label}]: loss sums {got.sums.tolist()} vs plain "
+                             f"{want.sums.tolist()}")
+    dheads_all = operand_distance(got.dheads, want.dheads)[0]
+    del want
+    t_mb, _, n = args[1].shape
+    row_dh = fused_update._ws_rows([h.shape[0] for h in got.hs])[1]
+    ws = fm_kernel_probe.p3_chain.workspace.view(-1, t_mb, fused_update._npad(n))
+    pad = int((ws[row_dh:, :, n:] != 0).sum())
+    if pad:
+        raise AssertionError(f"P3 kernel A [{label}]: {pad} dheads / dpre entries past N not zero")
+    dw, dwp = fm_kernel_probe.p3_dw(args[0], got, args[1])
+    dw_p, dwp_p = fused_update.k1_dw_plain(got, args[1])
+    torch.cuda.synchronize()
+    rels = {name: float((g.double() - w.double()).norm() / w.double().norm())
+            for name, g, w in (("dW1", dw[0], dw_p[0]), ("dW2", dw[1], dw_p[1]), ("dWp", dwp, dwp_p))}
+    worst_dw = max(rels, key=rels.get)
+    if rels[worst_dw] > K1_DW_REL:
+        raise AssertionError(f"P3 kernel B [{label}]: {worst_dw} relative L2 {rels[worst_dw]:.3e} "
+                             f"> {K1_DW_REL}")
+    print(f"phase 15 P3 kernel A vs p3_chain_plain [{label}], obs {'x'.join(map(str, args[1].shape))}: "
+          f"worst operand / bias grad / dWv relative L2 {worst_rel:.3e} cos {worst_cos:.8f} "
+          f"({int((~keep).sum())} columns whose clip branch may differ left out of the operands, "
+          f"{int((code_k != code_p).sum())} whose branch differs; dheads over every column "
+          f"{dheads_all:.3e}), loss sums "
+          f"{got.sums.tolist()}, dheads / dpre zero past N; kernel B vs k1_dw_plain on kernel A's "
+          f"operands: worst {worst_dw} relative L2 {rels[worst_dw]:.3e} [{card}]")
 
 
 def probe_p3(card: str):
     """P3 on the card: kernel vs plain at the JAX probe's size and ragged,
     losses within BF16_TOL's rtol, grads as phase 14 plus the value path,
-    the times, and the tool's main (check and bench) with the counts from
-    0.  Returns (err, ms, plain_ms, bound, launches)."""
+    each stage vs its plain version, the distance from float64, the times
+    of the call and of kernels A and B, and the tool's main (check and Adam
+    bench) with the counts from 0.  Returns (err, ms, plain_ms, bound,
+    launches)."""
     names = fm_kernel_probe.LABELS
     err, timed = 0.0, None
     for label, size, seed in (("T=32 N=131072", P2_FULL, 1), ("ragged T=3 N=1000", P3_RAGGED, 2)):
@@ -1155,16 +1379,37 @@ def probe_p3(card: str):
                                  f"{want[8].tolist()}")
         # The loss sums as means (K1's entries compare means).
         err = max(err, e, float((got[8] - want[8]).abs().max()) / (size[0] * size[1]))
+        hold_p3_split(label, args, card)
         if timed is None:
+            float64_line("fm_grads", got, want, fm_kernel_probe.fm_grads_float64(*args), names,
+                         card, 15)
             timed = time_grads(f"fm_grads {label}", kernel, plain, (), {}, card, 15)
+            t_mb, _, n = args[1].shape
+            chunk = fused_update.chunk_frames(t_mb, n)
+            ws = fm_kernel_probe._workspace(args[0], args[1], chunk)
+            stage_ms = {st: min(cuda_ms(lambda: fm_kernel_probe._call(
+                args[0], args[1], args[2], args[3:], ws, chunk, st), 3) for _ in range(2))
+                for st in (fused_update.STAGE_CHAIN, fused_update.STAGE_DW)}
+            del ws
+            floor_ms, nbytes = k1_split_floor(t_mb * n)
+            b = grad_bound(t_mb * n)
+            print(f"phase 15 time P3 split (fm_kernel_probe.cu, kernel A in k1_split.cuh's CHAIN_P3 "
+                  f"mode) T={t_mb} N={n}: call {timed[0]:.3f} ms = kernel A "
+                  f"{stage_ms[fused_update.STAGE_CHAIN]:.3f} ms + kernel B "
+                  f"{stage_ms[fused_update.STAGE_DW]:.3f} ms over chunks of {chunk} frame(s); the "
+                  f"design's floor by bytes {floor_ms:.3f} ms ({nbytes / 1e9:.2f} GB), the "
+                  f"function's bound {b[0]:.3f} ms by {b[1]} [{card}]")
         del args, got, want
     zero_counts()
     if fm_kernel_probe.main(["--frames", "8", "--steps", "4", "--iters", "2"]):
         raise AssertionError("fm_kernel_probe main: the check against autograd failed")
     launches = fm_kernel_probe.fm_grads.launches
-    if launches == 0:
-        raise AssertionError("fm_kernel_probe main launched no fm_grads")
-    print(f"phase 15 fm_kernel_probe main: fm_grads launches {launches} [{card}]")
+    by_kernel = fm_kernel_probe.fm_grads.launches_by_kernel
+    if launches == 0 or not all(by_kernel.values()):
+        raise AssertionError(f"fm_kernel_probe main: fm_grads launches {launches}, kernels "
+                             f"{by_kernel}")
+    print(f"phase 15 fm_kernel_probe main: fm_grads launches {launches}, kernels {by_kernel} "
+          f"[{card}]")
     return (err, *timed, grad_bound(P2_FULL[0] * P2_FULL[1]), launches)
 
 
@@ -1652,11 +1897,11 @@ def main() -> int:
     entries.append(("fused_ppo_grads", "k4_split.cu",
                     "pikazoo_tpu/train/fused_update.py:651", k4_launches, k4_err, k4_ms,
                     k4_plain_ms, grad_bound(rows)))
-    for name, source, replaces, (e, t, tp, b, n) in (
+    for name, source, replaces, (e, t, tp, b, n, *lib) in (
             ("flat_sims", "flat_sims.cu", "tools/compaction_probe.py:102", p1),
             ("mm_grads", "fm_roofline.cu", "tools/fm_roofline.py:95", p2),
             ("fm_grads", "fm_kernel_probe.cu", "tools/fm_kernel_probe.py:185", p3)):
-        entries.append((name, source, replaces, n, e, t, tp, b))
+        entries.append((name, source, replaces, n, e, t, tp, b, *lib))
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -1668,8 +1913,10 @@ def main() -> int:
         "plain_ms": tp,
         "bound_ms": b[0],
         "bound_by": b[1],
-        "library_ms": None,   # no one PyTorch call computes any of these functions
-    } for name, source, replaces, n, e, t, tp, b in entries]}))
+        # P2's yardstick: its eight products as eight torch.matmul calls, timed
+        # in phase 14; no one PyTorch call computes any other entry's function.
+        "library_ms": lib[0] if lib else None,
+    } for name, source, replaces, n, e, t, tp, b, *lib in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -102,10 +102,11 @@ _PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 
-def resource_usage(source: Path) -> list[tuple[str, int, int, int, int]]:
+def resource_usage(source: Path, notes: list | None = None) -> list[tuple[str, int, int, int, int]]:
     """``nvcc -Xptxas -v`` of one source, compiled to a cubin with the port's
     flags: (mangled kernel name, registers, stack bytes, spill store bytes,
-    spill load bytes) for each kernel instance."""
+    spill load bytes) for each kernel instance.  ``notes``, if given, takes
+    ptxas's performance warnings (e.g. wgmma serialized)."""
     flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -117,6 +118,8 @@ def resource_usage(source: Path) -> list[tuple[str, int, int, int, int]]:
                                f"{proc.stdout}{proc.stderr}")
     kernels, entry, frame = [], None, (-1, -1, -1)
     for line in (proc.stdout + proc.stderr).splitlines():
+        if notes is not None and "Performance Loss" in line:
+            notes.append(line.strip())
         if m := _PTXAS_ENTRY.search(line):
             entry = m.group(1)
         elif m := _PTXAS_FRAME.search(line):

@@ -55,7 +55,7 @@
 // - The tensor cores' f32 accumulation does not round to nearest and drifts
 //   toward zero over a long sum (PERF.md §6).  Every mma here sums 16
 //   products into a fresh fragment, which the running sum takes with
-//   __fadd_rn (ppo_grads.cuh's KCHUNK rule).
+//   __fadd_rn (k1_split.cuh's mma_add).
 // - Determinism: per-block partials (A: bias grads and loss sums; B: dW
 //   tiles), each added to in a fixed order across chunks and summed over
 //   blocks in block order by reduce_partials.  No float atomics.

@@ -4,9 +4,10 @@
 // bf16 and int8fwd modes, each with or without the bf16 backward chain
 // (fused_update_bf16.cu), K1's int8 mode (fused_update_int8.cu, which runs
 // kernel B for the head's dW and shares the int8 forward's device code
-// below) and K4 (k4_split.cu).  The design is described in
-// fused_update_bf16.cu; what K4, int8fwd and the bf16 backward chain change
-// in kernel A is described at chain_kernel.
+// below), K4 (k4_split.cu) and the feature-major prototype P3
+// (fm_kernel_probe.cu).  The design is described in fused_update_bf16.cu;
+// what K4, P3, int8fwd and the bf16 backward chain change in kernel A is
+// described at chain_kernel.
 
 #pragma once
 
@@ -25,8 +26,8 @@ using namespace ppo;
 #define LDH (COLS + 8)   // row stride of kernel A's bf16 tiles (elements)
 #define LDZ (COLS + 8)   // row stride of the head's f32 block
 #define HEAD_PAD 32      // K1's merged head (A+1 rows, padded); the workspace's dheads rows
-#define HEAD_SPLIT 48    // K4's head: the policy rows padded to 32, then the value row
-#define VALUE_ROW 32     // the value's row of K4's head
+#define HEAD_SPLIT 48    // K4's and P3's head: the policy rows padded to 32, then the value row
+#define VALUE_ROW 32     // the value's row of the split head
 #define A_WARPS 16       // warps of kernel A that compute
 #define A_PRODUCERS 128  // threads (a warpgroup) of kernel A that stream the weights
 #define A_THREADS (32 * A_WARPS + A_PRODUCERS)
@@ -188,6 +189,18 @@ __device__ __forceinline__ void mma_s8_tile(int (&acc)[8][4], const WarpTile& wt
 //   tile gives it the same outputs.  relu's derivative is the same from
 //   either.  The workspace's dheads rows, the bias grads and the kernel's
 //   outputs are in K1's merged layout, so kernel B and the wrapper are K1's.
+// - CHAIN_P3 (P3, the feature-major prototype with split heads): K1 bf16's
+//   tiles and derivative (from bf16(h)), the split head of CHAIN_K4, and the
+//   TPU kernel's value path (tools/fm_kernel_probe.py:103-110, :144-162):
+//   the value is the head product's row VALUE_ROW, an f32 sum of f32(bf16
+//   Wv) * f32(h_top); dvalue stays f32 (the dheads rows the products read
+//   hold bf16(dlogits) alone, the value's row zero), so the head's dh product
+//   sums the policy rows only (K = 32) and its epilogue adds f32(Wv) *
+//   dvalue in f32; dWv = sum_c h_top * dvalue and dbv = sum_c dvalue are
+//   summed in f32 per block (value_weight_sums, the bias grads' row sums)
+//   and written to the block's partial after the loss sums.  The workspace's
+//   dheads rows are bf16(dlogits), zero from row A: kernel B's dWpv holds
+//   dWp in its first A columns and nothing of the value.
 // BB, orthogonal to the mode (CHAIN_BF16 or CHAIN_INT8FWD with the bf16
 // backward chain, bwd_bf16): the backward's epilogue in bf16 arithmetic, op
 // by op, as the JAX kernel casts it: dh_b = bf16(dh), for tanh hh =
@@ -197,7 +210,12 @@ __device__ __forceinline__ void mma_s8_tile(int (&acc)[8][4], const WarpTile& wt
 // (fma_slice) over its A+1 rows, reading Wpv from the ring stage that the
 // producers fill for it as for the mma, so the stream, the ring's order, the
 // barriers and the shared-memory plan are the mode's own.
-enum { CHAIN_BF16 = 0, CHAIN_INT8FWD = 1, CHAIN_K4 = 2 };
+enum { CHAIN_BF16 = 0, CHAIN_INT8FWD = 1, CHAIN_K4 = 2, CHAIN_P3 = 3 };
+
+// The modes whose head is split (HEAD_SPLIT rows, the value in VALUE_ROW).
+__host__ __device__ constexpr bool split_head(int mode) {
+    return mode == CHAIN_K4 || mode == CHAIN_P3;
+}
 
 // A product's weights: W_FWD W (K, M) bf16 row-major, the product W^T act;
 // W_DH W (M, K) bf16 row-major, W act; W_FWD8 W^T (M, K) int8 row-major, K
@@ -217,6 +235,7 @@ struct ParamsA {
     const float *logp_old, *value_old, *adv, *target;
     const float* b[MAX_LAYERS + 1];
     const float* sw;           // int8fwd: the L+1 weight scales
+    const float* wv;           // P3: f32(bf16 Wv), H_top floats
     Prod prod[MAX_PRODUCTS];
     int slices_per_tile, stage_elems;
     int hidden[MAX_LAYERS];
@@ -226,9 +245,10 @@ struct ParamsA {
     long long ws_cols;
     long long off_x, off_h[MAX_LAYERS], off_dh, off_dp[MAX_LAYERS];  // elements
     float2* hkeep;             // K4 tanh: (blocks, L, 16, 32 * A_WARPS) f32 activations
-    float* partial;            // (blocks, stride): bias grads (K1's layout), then 4 loss sums
+    float* partial;            // (blocks, stride): bias grads (K1's layout), 4 loss sums, P3's dWv
     int stride, first, bias_total;
     int sm_x, sm_h[MAX_LAYERS], sm_dh, sm_z, sm_loss, sm_bias, sm_bgrad, sm_rsum, sm_ring;
+    int sm_wv, sm_dwv;         // P3: Wv and the block's dWv, H_top floats each
     int sm_act[2];             // int8fwd: the int8 act tiles [column][feature], lda bytes a column
 };
 
@@ -419,6 +439,21 @@ __device__ __forceinline__ void load_rows(bf16* xs, const bf16* src, int F, int 
     }
 }
 
+// P3's dWv: acc[r] += the sum over the tile's columns of h[r][c] * dval[c]
+// (h bf16 with row stride LDH), a warp a row, the products in f32, then a
+// butterfly in a fixed order (deterministic).
+__device__ __forceinline__ void value_weight_sums(const bf16* h, const float* dval, int rows,
+                                                  float* acc) {
+    const int lane = threadIdx.x & 31;
+    for (int r = threadIdx.x >> 5; r < rows; r += blockDim.x >> 5) {
+        float s = __fadd_rn(__fmul_rn(__bfloat162float(h[r * LDH + lane]), dval[lane]),
+                            __fmul_rn(__bfloat162float(h[r * LDH + lane + 32]), dval[lane + 32]));
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (lane == 0) acc[r] += s;
+    }
+}
+
 // BB's dpre_b of an f32 dh and the bf16 activation h (as f32).
 __device__ __forceinline__ float bf16_round(float x) {
     return __bfloat162float(__float2bfloat16(x));
@@ -432,8 +467,8 @@ __device__ __forceinline__ float dpre_bf16(float dh, float h, int relu) {
 
 template <int MODE, bool BB, int NST, int KS>
 __global__ void __launch_bounds__(A_THREADS, 1) chain_kernel(const __grid_constant__ ParamsA p) {
-    static_assert(!BB || MODE != CHAIN_K4, "K4 has no bf16 backward chain");
-    constexpr int HR = MODE == CHAIN_K4 ? HEAD_SPLIT : HEAD_PAD;  // the head's rows
+    static_assert(!BB || !split_head(MODE), "K4 and P3 have no bf16 backward chain");
+    constexpr int HR = split_head(MODE) ? HEAD_SPLIT : HEAD_PAD;  // the head's rows
     extern __shared__ __align__(128) unsigned char smem[];
     bf16* xs = (bf16*)(smem + p.sm_x);
     bf16* dhb = (bf16*)(smem + p.sm_dh);
@@ -446,7 +481,7 @@ __global__ void __launch_bounds__(A_THREADS, 1) chain_kernel(const __grid_consta
     bf16* ring = (bf16*)(smem + p.sm_ring);
     const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, tg = lane & 3;
     const int L = p.L, A = p.A;
-    const int vrow = MODE == CHAIN_K4 ? VALUE_ROW : A;
+    const int vrow = split_head(MODE) ? VALUE_ROW : A;
     const int hidden_total = p.bias_total - HEAD_PAD;
     const bool keep = MODE == CHAIN_K4 && !p.relu;  // the f32 activations kept for the backward
     const bf16 zero = __float2bfloat16(0.0f);
@@ -460,6 +495,11 @@ __global__ void __launch_bounds__(A_THREADS, 1) chain_kernel(const __grid_consta
         }
         for (int i = tid; i < hidden_total + HR; i += A_THREADS) bgrad[i] = 0.0f;
         if (tid < 4) lacc[tid] = 0.0f;
+        if (MODE == CHAIN_P3)
+            for (int i = tid; i < p.hidden[L - 1]; i += A_THREADS) {
+                ((float*)(smem + p.sm_wv))[i] = p.wv[i];
+                ((float*)(smem + p.sm_dwv))[i] = 0.0f;
+            }
         if (MODE == CHAIN_K4)
             for (int i = tid; i < (p.Fp - p.F) * COLS; i += A_THREADS)
                 xs[(p.F + i / COLS) * LDH + i % COLS] = zero;
@@ -646,6 +686,9 @@ __global__ void __launch_bounds__(A_THREADS, 1) chain_kernel(const __grid_consta
         __syncthreads();
         row_sums<COLS>(z, LDZ, HR, bgrad + boff);
         row_sums<COLS>(closs, COLS, 4, lacc);
+        if (MODE == CHAIN_P3)  // dWv, before the backward overwrites h_top
+            value_weight_sums((const bf16*)(smem + p.sm_h[L - 1]), z + VALUE_ROW * LDZ,
+                              p.hidden[L - 1], (float*)(smem + p.sm_dwv));
 
         // ---- backward: dh_l = W_{l+1} . bf16(dpre_{l+1}) (the head: Wpv .
         // bf16(dheads)), then dpre_l = dh_l * act'(h_l) on registers (BB: in
@@ -669,6 +712,13 @@ __global__ void __launch_bounds__(A_THREADS, 1) chain_kernel(const __grid_consta
                         __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(h + r * LDH + c);
                         const float2 hf = keep ? __ldcg(hk + (l * 16 + j * 2 + hh) * (32 * A_WARPS))
                                                : __bfloat1622float2(*hp);
+                        if (MODE == CHAIN_P3 && i == L + 1) {
+                            // dh = Wp . bf16(dlogits) + f32(Wv) * dvalue, in f32.
+                            const float wv = ((const float*)(smem + p.sm_wv))[r];
+                            const float* dval = z + VALUE_ROW * LDZ + c;
+                            acc[j][2 * hh] = __fadd_rn(acc[j][2 * hh], __fmul_rn(wv, dval[0]));
+                            acc[j][2 * hh + 1] = __fadd_rn(acc[j][2 * hh + 1], __fmul_rn(wv, dval[1]));
+                        }
                         float d0, d1;
                         if constexpr (BB) {
                             d0 = dpre_bf16(acc[j][2 * hh], hf.x, p.relu);
@@ -720,12 +770,18 @@ __global__ void __launch_bounds__(A_THREADS, 1) chain_kernel(const __grid_consta
     float* part = p.partial + (size_t)blockIdx.x * p.stride;
     for (int i = tid; i < p.bias_total; i += A_THREADS) {
         const int r = i - hidden_total;
-        const float v = bgrad[MODE == CHAIN_K4 && r == A ? hidden_total + VALUE_ROW : i];
+        const float v = bgrad[split_head(MODE) && r == A ? hidden_total + VALUE_ROW : i];
         part[i] = p.first ? v : __fadd_rn(part[i], v);
     }
     if (tid < 4)
         part[p.bias_total + tid] =
             p.first ? lacc[tid] : __fadd_rn(part[p.bias_total + tid], lacc[tid]);
+    if (MODE == CHAIN_P3)
+        for (int i = tid; i < p.hidden[L - 1]; i += A_THREADS) {
+            const float v = ((const float*)(smem + p.sm_dwv))[i];
+            float* dst = part + p.bias_total + 4 + i;
+            *dst = p.first ? v : __fadd_rn(*dst, v);
+        }
 }
 
 // ------------------------------------------------- kernel A, the host --
@@ -738,7 +794,7 @@ typedef void (*ChainKernel)(const ParamsA);
 
 template <int MODE, bool BB = false>
 int plan_chain(ParamsA& pa, int np, ChainKernel* kernel) {
-    constexpr int HR = MODE == CHAIN_K4 ? HEAD_SPLIT : HEAD_PAD;
+    constexpr int HR = split_head(MODE) ? HEAD_SPLIT : HEAD_PAD;
     const int L = pa.L;
     int sm = 0;
     auto take = [&](int bytes) {
@@ -766,6 +822,10 @@ int plan_chain(ParamsA& pa, int np, ChainKernel* kernel) {
     pa.sm_bias = take((pa.bias_total - HEAD_PAD + HR) * 4);
     pa.sm_bgrad = take((pa.bias_total - HEAD_PAD + HR) * 4);
     pa.sm_rsum = take(256 * 4);
+    if (MODE == CHAIN_P3) {
+        pa.sm_wv = take(pa.hidden[L - 1] * 4);
+        pa.sm_dwv = take(pa.hidden[L - 1] * 4);
+    }
     pa.sm_ring = sm;
     const struct { int nst, ks; ChainKernel kernel; } plans[] = {
         {3, 64, chain_kernel<MODE, BB, 3, 64>}, {3, 32, chain_kernel<MODE, BB, 3, 32>},

@@ -1,92 +1,20 @@
 // Device code shared by the clipped-PPO gradient kernels: the split design
-// (k1_split.cuh: K1's modes and K4, and fused_update_int8.cu) and the probe
-// kernels (fm_roofline.cu, fm_kernel_probe.cu).  Each holds a tile of
-// columns (K4: of rows) in shared memory with the batch on the fast axis, so
-// the bias-gradient row sums, the per-column loss and the probes' WMMA
-// products are the same code.
+// (k1_split.cuh: K1's modes, K4 and P3, and fused_update_int8.cu) and P2
+// (fm_roofline.cu).  Each holds a tile of columns (K4: of rows) in shared
+// memory with the batch on the fast axis, so the bias-gradient row sums, the
+// per-column loss and the partials' block-order sum are the same code.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace ppo {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
-typedef wmma::row_major RM;
-typedef wmma::col_major CM;
-
-#define KCHUNK 16  // products summed on the tensor cores before a rounded add
-
-// ---------------------------------------------------------------------------
-// D (M x N) = [D +] A (M x K) . B (K x N), bf16 operands, f32 accumulation.
-// A, B in the given layouts and leading dims (either in shared or global
-// memory); D row-major f32.  M, N, K multiples of 16.  A warp owns a strip of
-// up to four 16x16 output tiles, so each A fragment is loaded once per strip.
-template <typename LA>
-__device__ __forceinline__ const bf16* a_at(const bf16* A, int r, int c, int ld) {
-    return std::is_same<LA, wmma::row_major>::value ? A + (size_t)r * ld + c
-                                                     : A + (size_t)c * ld + r;
-}
-
-template <typename LA, typename LB, bool ACC>
-__device__ void gemm(int M, int N, int K, const bf16* A, int lda,
-                     const bf16* B, int ldb, float* D, int ldd) {
-    typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-    const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-    const int mt = M >> 4, nstrips = (N + 63) >> 6;
-    for (int job = warp; job < mt * nstrips; job += nwarps) {
-        const int tm = job / nstrips, n0 = (job % nstrips) * 64;
-        const int nt = min(4, (N - n0) >> 4);
-        Acc acc[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            if (j < nt) {
-                float* d = D + (size_t)(tm * 16) * ldd + n0 + j * 16;
-                if (ACC) wmma::load_matrix_sync(acc[j], d, ldd, wmma::mem_row_major);
-                else wmma::fill_fragment(acc[j], 0.0f);
-            }
-        }
-        for (int k0 = 0; k0 < K; k0 += KCHUNK) {
-            // The tensor cores' f32 accumulation does not round to nearest:
-            // each chunk of products is summed into a fresh fragment and
-            // added to the running sum with round-to-nearest adds.
-            Acc part[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) wmma::fill_fragment(part[j], 0.0f);
-            for (int k = k0; k < min(K, k0 + KCHUNK); k += 16) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-                wmma::load_matrix_sync(a, a_at<LA>(A, tm * 16, k, lda), lda);
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    if (j < nt) {
-                        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-                        // B (k, n): row-major at k*ldb + n, col-major at n*ldb + k.
-                        wmma::load_matrix_sync(b, a_at<LB>(B, k, n0 + j * 16, ldb), ldb);
-                        wmma::mma_sync(part[j], a, b, part[j]);
-                    }
-                }
-            }
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-#pragma unroll
-                for (int i = 0; i < part[j].num_elements; ++i)
-                    acc[j].x[i] = __fadd_rn(acc[j].x[i], part[j].x[i]);
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            if (j < nt)
-                wmma::store_matrix_sync(D + (size_t)(tm * 16) * ldd + n0 + j * 16,
-                                        acc[j], ldd, wmma::mem_row_major);
-        }
-    }
-}
 
 // ---------------------------------------------------------------------------
 // int8 products on the tensor cores: d += a . b on mma.sync m16n8k32, s8 x s8

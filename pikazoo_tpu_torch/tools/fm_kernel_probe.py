@@ -2,9 +2,9 @@
 
 Counterpart of the JAX package's ``tools/fm_kernel_probe.py``: the fused
 clipped-PPO gradient of a 2-layer tanh MLP, feature-major, with the policy
-and value heads apart (:func:`fm_grads`, kernel ``csrc/fm_kernel_probe.cu``).
-Its function is not K1's (``train.fused_update.fused_ppo_grads_fm``), though
-it sits close to it; it differs where the value head is concerned:
+and value heads apart (:func:`fm_grads`).  Its function is not K1's
+(``train.fused_update.fused_ppo_grads_fm``), though it sits close to it; it
+differs where the value head is concerned:
 
 - the value is ``sum_h f32(bf16 Wv) * f32(h2_b)``, an f32 sum, not a row of
   the head product;
@@ -15,6 +15,13 @@ it sits close to it; it differs where the value head is concerned:
 
 Fixed: clip 0.2, value coefficient 0.5, entropy coefficient 0.01, the mean
 over all T*N columns, tanh, no action mask; F=35, H=256, A=18 in the tool.
+
+On the card it runs on K1's split design (``csrc/fm_kernel_probe.cu``):
+kernel A, the chain kernel of ``csrc/k1_split.cuh`` in its P3 mode
+(:func:`p3_chain`, plain version :func:`p3_chain_plain`), writes the dW
+products' bf16 operands to a workspace and sums the bias grads, ``dWv`` and
+the loss; kernel B, K1's (:func:`p3_dw`, plain version
+``train.fused_update.k1_dw_plain``), computes dW1, dW2 and dWp from it.
 
     python3 -m pikazoo_tpu_torch.tools.fm_kernel_probe
     python3 -m pikazoo_tpu_torch.tools.fm_kernel_probe --device cpu --frames 2 --cols 512 \\
@@ -36,21 +43,23 @@ import argparse
 import ctypes
 import functools
 import sys
-from typing import List, Sequence
+from typing import List, NamedTuple, Sequence
 
 import torch
 
 from pikazoo_tpu_torch import _build
 from pikazoo_tpu_torch.tools._timing import resolve, timer, where
-from pikazoo_tpu_torch.train.fused_update import PLAIN_COLS, _loss_and_dheads
+from pikazoo_tpu_torch.tools.k1_precision_probe import float64_products
+from pikazoo_tpu_torch.train import fused_update as fu
+from pikazoo_tpu_torch.train.fused_update import (HEAD_PAD, HEAD_SPLIT, PLAIN_COLS, VALUE_ROW,
+                                                  _loss_and_dheads, k1_dw_plain)
 from pikazoo_tpu_torch.train.networks import BF16
 
 SOURCES = ("fm_kernel_probe.cu",)
 A, F, H = 18, 35, 256
 CLIP, VCOEF, ECOEF = 0.2, 0.5, 0.01
-COLS = 64        # columns a tile
-HEAD_PAD = 32    # policy rows and the value row, padded
 LABELS = ("dW1", "db1", "dW2", "db2", "dWp", "dbp", "dWv", "dbv")
+KERNELS = ("p3_chain", "p3_dw")  # the keys of ``fm_grads.launches_by_kernel``
 
 
 def _bf(v: torch.Tensor) -> torch.Tensor:
@@ -99,18 +108,108 @@ def fm_grads_plain(params: Sequence[torch.Tensor], obs, action, lpold, vold, adv
             dpre1 = torch.matmul(w2, dpre2b) * (1.0 - h1 * h1)
             dw1 += torch.matmul(x, _bf(dpre1).t())
             db1 += dpre1.sum(dim=1)
-    loss = torch.cat([sums, torch.zeros(4, device=obs.device)])[None]
+    return _outputs(dw1, dw2, dwp, db1, db2, dbp, dwv, dbv, sums)
+
+
+def fm_grads_float64(params, obs, action, lpold, vold, adv, tgt) -> List[torch.Tensor]:
+    """:func:`fm_grads_plain` with every product in float64 (rounded to f32):
+    the reference the kernel's and the plain version's sums are measured
+    against."""
+    return float64_products(fm_grads_plain, params, obs, action, lpold, vold, adv, tgt)
+
+
+def _outputs(dw1, dw2, dwp, db1, db2, dbp, dwv, dbv, sums) -> List[torch.Tensor]:
+    loss = torch.cat([sums, torch.zeros(4, device=sums.device)])[None]
     return [dw1, db1[:, None], dw2, db2[:, None], dwp, dbp[:, None], dwv[:, None],
             dbv.reshape(1, 1), loss]
+
+
+class P3Chain(NamedTuple):
+    """What P3 computes before its dW products (kernel A of
+    ``csrc/fm_kernel_probe.cu``): the products' operands at the function's
+    rounding points, each (rows, T, N) bf16, and the f32 sums.  ``hs`` are
+    bf16(h1), bf16(h2); ``dheads`` bf16(dlogits) (A rows: the value's
+    gradient stays f32 and out of every product); ``dpres`` bf16(dpre1),
+    bf16(dpre2); ``db`` the f32 row sums of the unrounded dpre1, dpre2;
+    ``dbp`` of the f32 dlogits, ``dbv`` (1,) of dvalue; ``dwv`` (H2,) the f32
+    sums of h2 * dvalue; ``sums`` the 4 loss sums.  ``hs``, ``dheads`` and
+    ``dpres`` are what K1's :func:`~pikazoo_tpu_torch.train.fused_update.k1_dw_plain`
+    takes."""
+    hs: List[torch.Tensor]
+    dheads: torch.Tensor
+    dpres: List[torch.Tensor]
+    db: List[torch.Tensor]
+    dbp: torch.Tensor
+    dbv: torch.Tensor
+    dwv: torch.Tensor
+    sums: torch.Tensor
+
+
+def p3_chain_plain(params: Sequence[torch.Tensor], obs, action, lpold, vold, adv,
+                   tgt) -> P3Chain:
+    """The plain version of P3's kernel A, on any device: :func:`fm_grads_plain`'s
+    forward, loss and backward chain, a frame and ``PLAIN_COLS`` columns at a
+    time, keeping the dW products' operands instead of taking the products."""
+    W1, b1, W2, b2, Wp, bp, Wv, bv = params
+    w1, w2, wp = _bf(W1), _bf(W2), _bf(Wp)
+    wvf = _bf(Wv)[:, 0]                                      # (H2,)
+    b1f, b2f, bpf, bvf = (b.float() for b in (b1, b2, bp, bv))
+    t_mb, _, n = obs.shape
+    inv_m = 1.0 / (t_mb * n)
+    kw = dict(inv_m=inv_m, clip_eps=CLIP, value_coef=VCOEF, entropy_coef=ECOEF)
+    new = lambda rows: torch.empty((rows, t_mb, n), dtype=BF16, device=obs.device)
+    hs = [new(w1.shape[1]), new(w2.shape[1])]
+    dpres = [new(w1.shape[1]), new(w2.shape[1])]
+    dheads = new(wp.shape[1])
+    db = [torch.zeros_like(b1f), torch.zeros_like(b2f)]
+    dbp, dwv, dbv = torch.zeros_like(bpf), torch.zeros_like(wvf), torch.zeros_like(bvf)
+    sums = torch.zeros(4, dtype=torch.float32, device=obs.device)
+    for t in range(t_mb):
+        for c0 in range(0, n, PLAIN_COLS):
+            cols = slice(c0, min(n, c0 + PLAIN_COLS))
+            x = obs[t, :, cols].float()
+            h1 = _bf(torch.tanh(torch.matmul(w1.t(), x) + b1f[:, None]))
+            h2 = _bf(torch.tanh(torch.matmul(w2.t(), h1) + b2f[:, None]))
+            logits = torch.matmul(wp.t(), h2) + bpf[:, None]           # (A, C)
+            value = (wvf[:, None] * h2).sum(dim=0) + bvf               # (C,)
+            chunk_sums, dlogits, dvalue = _loss_and_dheads(
+                logits, value, action[t, cols], lpold[t, cols], adv[t, cols],
+                vold[t, cols], tgt[t, cols], **kw)
+            sums += chunk_sums
+            dlb = _bf(dlogits)
+            dbp += dlogits.sum(dim=1)
+            dwv += (h2 * dvalue).sum(dim=1)
+            dbv += dvalue.sum()
+            dpre2 = (torch.matmul(wp, dlb) + wvf[:, None] * dvalue) * (1.0 - h2 * h2)
+            dpre2b = _bf(dpre2)
+            dpre1 = torch.matmul(w2, dpre2b) * (1.0 - h1 * h1)
+            for out, v in ((hs[0], h1), (hs[1], h2), (dheads, dlb), (dpres[0], dpre1),
+                           (dpres[1], dpre2b)):
+                out[:, t, cols] = v
+            db[0] += dpre1.sum(dim=1)
+            db[1] += dpre2.sum(dim=1)
+    return P3Chain(hs, dheads, dpres, db, dbp, dbv, dwv, sums)
+
+
+def compose(chain: P3Chain, dw: Sequence[torch.Tensor], dwp: torch.Tensor):
+    """The function's outputs (as :func:`fm_grads_plain` returns them) from
+    kernel A's sums and kernel B's dW (``k1_dw_plain``'s (dW list, dWp))."""
+    return _outputs(dw[0], dw[1], dwp, *chain.db, chain.dbp, chain.dwv, chain.dbv,
+                    chain.sums)
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     lib = _build.load("fm_kernel_probe", SOURCES)
-    fn = lib.fm_grads_launch
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p])
+    ptr = ctypes.c_void_p
+    fn = lib.p3_launch
+    fn.argtypes = ([ptr] * 6                        # obs and the 5 per-column inputs
+                   + [ptr] * 3                      # weights, biases, wv
+                   + [ctypes.c_int] * 7             # H1, H2, F, Fp, A, T, N
+                   + [ctypes.c_float] * 4           # clip, -1/M, entropy and value scales
+                   + [ptr, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]  # workspace
+                   + [ptr, ctypes.c_int, ptr, ctypes.c_int]  # partials of A and B
+                   + [ptr, ptr, ctypes.c_int])      # out, stream, stages
     fn.restype = ctypes.c_int
     return lib
 
@@ -142,60 +241,96 @@ def _check(params, obs, scalars, action) -> torch.device:
     return obs.device
 
 
-def _launch(params, obs, action, lpold, vold, adv, tgt) -> List[torch.Tensor]:
+def _net(params, f: int):
+    """The weights as the kernels take them: W1 with zero rows to Fp, W2, the
+    split head (H2, HEAD_SPLIT) with Wp in columns 0..A-1 and Wv in
+    VALUE_ROW; the biases (the head's likewise); f32(bf16 Wv)."""
     W1, b1, W2, b2, Wp, bp, Wv, bv = params
-    t_mb, f, n = obs.shape
     h1, h2, a = W1.shape[1], W2.shape[1], Wp.shape[1]
     if h1 % 16 or h2 % 16 or max(h1, h2) > 256 or not 1 <= a < HEAD_PAD:
         raise ValueError(f"the kernel takes hidden widths of multiples of 16 up to 256 and "
                          f"1-{HEAD_PAD - 1} actions, got {h1}, {h2}, {a}")
-    device = obs.device
-    fp = -(-f // 16) * 16
-    w1 = torch.zeros((fp, h1), dtype=BF16, device=device)
+    device = W1.device
+    w1 = torch.zeros((fu._round16(f), h1), dtype=BF16, device=device)
     w1[:f] = W1.to(BF16)
-    wp = torch.zeros((h2, HEAD_PAD), dtype=BF16, device=device)
-    wp[:, :a] = Wp.to(BF16)
-    bpv = torch.zeros(HEAD_PAD, dtype=torch.float32, device=device)
-    bpv[:a] = bp.float()
-    bpv[a] = bv.float()[0]
-    w2 = W2.to(BF16).contiguous()
-    wv = Wv[:, 0].to(BF16).contiguous()
-    b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
-    n_w = fp * h1 + h1 * h2 + h2 * HEAD_PAD
-    n_b = h1 + h2 + HEAD_PAD
-    stride = -(-(n_w + n_b + h2 + 4) // 64) * 64
-    tiles = t_mb * -(-n // COLS)
-    blocks = min(tiles, torch.cuda.get_device_properties(device).multi_processor_count)
-    partial = torch.empty((blocks, stride), dtype=torch.float32, device=device)
-    out = torch.empty(stride, dtype=torch.float32, device=device)
-    act32 = action.to(torch.int32).contiguous()
-    scal = [x.contiguous() for x in (lpold, vold, adv, tgt)]
+    head = torch.zeros((h2, HEAD_SPLIT), dtype=BF16, device=device)
+    head[:, :a] = Wp.to(BF16)
+    head[:, VALUE_ROW] = Wv[:, 0].to(BF16)
+    bh = torch.zeros(HEAD_SPLIT, dtype=torch.float32, device=device)
+    bh[:a] = bp.float()
+    bh[VALUE_ROW] = bv.float()[0]
+    weights = [w1, W2.to(BF16).contiguous(), head]
+    biases = [b1.float().contiguous(), b2.float().contiguous(), bh]
+    return weights, biases, _bf(Wv)[:, 0].contiguous()
+
+
+def _call(params, obs, action, scalars, ws, chunk: int, stages: int):
+    """Launch P3's kernels over ``obs`` (T, F, N) through the workspace ``ws``
+    (rows, chunk * Npad) bf16, ``chunk`` frames at a time: kernel A, kernel B
+    or both (``stages``; kernel B alone reads only ``ws`` and ``obs``, and
+    takes ``action`` None).
+    Returns ``out`` (``csrc/fm_kernel_probe.cu``'s ``p3_launch``)."""
+    t_mb, f, n = obs.shape
+    h1, h2 = params[0].shape[1], params[2].shape[1]
+    device = obs.device
+    fp = fu._round16(f)
+    shapes = [(fp, h1), (h1, h2), (h2, HEAD_PAD)]
+    n_w = sum(i * o for i, o in shapes)
+    stride_a = h1 + h2 + HEAD_PAD + 4 + h2
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    npad = fu._npad(n)
+    blocks_a = min(chunk * npad // fu.COLS, sms)
+    tiles = sum(-(-i // fu.DW_TILE) * -(-o // fu.DW_TILE) for i, o in shapes)
+    ranges = max(1, min(-(-fu.DW_BLOCKS_PER_SM * sms // tiles), chunk * npad // fu.COLS))
+    partial_a = torch.empty((blocks_a, stride_a), dtype=torch.float32, device=device)
+    partial_b = torch.empty((ranges, n_w), dtype=torch.float32, device=device)
+    out = torch.empty(n_w + stride_a, dtype=torch.float32, device=device)
+    weights, biases, wv = _net(params, f)
+    w_ptrs, _w = fu._ptr_array(weights)
+    b_ptrs, _b = fu._ptr_array(biases)
+    keep = [] if action is None else [action.to(torch.int32).contiguous(),
+                                      *[x.contiguous() for x in scalars]]
+    ptrs = [x.data_ptr() for x in keep] or [None] * 5
     obs = obs.contiguous()
     inv_m = 1.0 / (t_mb * n)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _library().fm_grads_launch(
-            obs.data_ptr(), act32.data_ptr(), *[x.data_ptr() for x in scal],
-            w1.data_ptr(), w2.data_ptr(), wp.data_ptr(), wv.data_ptr(), b1f.data_ptr(),
-            b2f.data_ptr(), bpv.data_ptr(), t_mb, f, fp, n, h1, h2, a,
-            CLIP, -inv_m, ECOEF * inv_m, VCOEF * inv_m,
-            partial.data_ptr(), blocks, stride, out.data_ptr(), stream)
+        err = _library().p3_launch(
+            obs.data_ptr(), *ptrs, w_ptrs, b_ptrs,
+            wv.data_ptr(), h1, h2, f, fp, params[4].shape[1], t_mb, n,
+            CLIP, -inv_m, ECOEF * inv_m, VCOEF * inv_m, ws.data_ptr(), ws.shape[0], ws.shape[1],
+            chunk, partial_a.data_ptr(), blocks_a, partial_b.data_ptr(), ranges,
+            out.data_ptr(), stream, stages)
     if err != 0:
         raise RuntimeError(f"fm_grads kernel launch failed: CUDA error {err}")
-    pos = 0
+    chunks = -(-t_mb // chunk)
+    for bit, name in ((fu.STAGE_CHAIN, "p3_chain"), (fu.STAGE_DW, "p3_dw")):
+        if stages & bit:
+            fm_grads.launches_by_kernel[name] += chunks
+    return out
 
-    def take(k):
-        nonlocal pos
-        pos += k
-        return out[pos - k:pos]
 
-    dw1 = take(fp * h1).view(fp, h1)[:f]
-    dw2 = take(h1 * h2).view(h1, h2)
-    dwp = take(h2 * HEAD_PAD).view(h2, HEAD_PAD)[:, :a]
-    db1, db2, dbpv, dwv = take(h1), take(h2), take(HEAD_PAD), take(h2)
-    loss = torch.cat([take(4), torch.zeros(4, device=device)])[None]
-    return [dw1, db1[:, None], dw2, db2[:, None], dwp, dbpv[:a, None], dwv[:, None],
-            dbpv[a:a + 1, None], loss]
+def _unpack(out, params, f: int):
+    """``out`` -> (dW1, dW2, dWp, db1, db2, dbp, dWv, dbv, loss sums)."""
+    h1, h2, a = params[0].shape[1], params[2].shape[1], params[4].shape[1]
+    dw, db, dwh, dbh, sums = fu._unpack(out, [fu._round16(f), h1, h2], HEAD_PAD, f)
+    pos = fu._round16(f) * h1 + h1 * h2 + h2 * HEAD_PAD + h1 + h2 + HEAD_PAD + 4
+    return dw[0], dw[1], dwh[:, :a], db[0], db[1], dbh[:a], out[pos:pos + h2], dbh[a:a + 1], sums
+
+
+def _workspace(params, obs, frames: int) -> torch.Tensor:
+    h1, h2 = params[0].shape[1], params[2].shape[1]
+    rows = fu._ws_rows([h1, h2])[-1]
+    return torch.empty((rows, frames * fu._npad(obs.shape[2])), dtype=BF16, device=obs.device)
+
+
+def _launch(params, obs, action, lpold, vold, adv, tgt) -> List[torch.Tensor]:
+    """Kernels A and B over chunks of frames (``fu.chunk_frames``)."""
+    t_mb, f, n = obs.shape
+    chunk = fu.chunk_frames(t_mb, n)
+    out = _call(params, obs, action, (lpold, vold, adv, tgt), _workspace(params, obs, chunk),
+                chunk, fu.STAGE_CHAIN | fu.STAGE_DW)
+    return _outputs(*_unpack(out, params, f))
 
 
 def fm_grads(params: Sequence[torch.Tensor], obs: torch.Tensor, action: torch.Tensor,
@@ -208,9 +343,10 @@ def fm_grads(params: Sequence[torch.Tensor], obs: torch.Tensor, action: torch.Te
     in bf16, the biases in f32); ``obs`` (T, F, N) bf16; ``action`` (T, N)
     int; ``lpold``, ``vold``, ``adv`` (normalised), ``tgt``: (T, N) float32.
     Returns the JAX function's outputs, as :func:`fm_grads_plain`.  On CUDA
-    this launches ``csrc/fm_kernel_probe.cu`` on the current stream without
-    synchronising and adds one to ``fm_grads.launches``; on the CPU it runs
-    :func:`fm_grads_plain`."""
+    this launches ``csrc/fm_kernel_probe.cu``'s kernels A and B once a chunk
+    of frames each on the current stream without synchronising, adds one to
+    ``fm_grads.launches`` and the chunks to ``fm_grads.launches_by_kernel``;
+    on the CPU it runs :func:`fm_grads_plain`."""
     scalars = (lpold, vold, adv, tgt)
     device = _check(params, obs, scalars, action)
     if device.type == "cpu":
@@ -220,7 +356,57 @@ def fm_grads(params: Sequence[torch.Tensor], obs: torch.Tensor, action: torch.Te
     return result
 
 
-fm_grads.launches = 0
+def p3_chain(params: Sequence[torch.Tensor], obs, action, lpold, vold, adv, tgt) -> P3Chain:
+    """P3's kernel A alone, over the whole minibatch (its workspace holds every
+    frame): the :class:`P3Chain` of :func:`p3_chain_plain`, whose operands are
+    views of the workspace (``p3_chain.workspace`` keeps the last one, its
+    padded columns included).  On CUDA it adds one to ``p3_chain.launches``;
+    on the CPU it runs :func:`p3_chain_plain`."""
+    scalars = (lpold, vold, adv, tgt)
+    if _check(params, obs, scalars, action).type == "cpu":
+        return p3_chain_plain(params, obs, action, *scalars)
+    t_mb, f, n = obs.shape
+    ws = _workspace(params, obs, t_mb)
+    out = _call(params, obs, action, scalars, ws, t_mb, fu.STAGE_CHAIN)
+    p3_chain.launches += 1
+    p3_chain.workspace = ws
+    _, _, _, db1, db2, dbp, dwv, dbv, sums = _unpack(out, params, f)
+    h1, h2, a = params[0].shape[1], params[2].shape[1], params[4].shape[1]
+    row_h, row_dh, row_dp, rows = fu._ws_rows([h1, h2])
+    view = ws.view(rows, t_mb, fu._npad(n))
+    op = lambda r, k: view[r:r + k, :, :n]
+    return P3Chain([op(row_h[0], h1), op(row_h[1], h2)], op(row_dh, a),
+                   [op(row_dp[0], h1), op(row_dp[1], h2)], [db1, db2], dbp, dbv, dwv, sums)
+
+
+def p3_dw(params: Sequence[torch.Tensor], chain: P3Chain, obs: torch.Tensor):
+    """P3's kernel B (K1's) alone on ``chain``'s operands (copied into a
+    workspace of the whole minibatch, zero past column N): the dW of
+    ``k1_dw_plain``, ([dW1, dW2], dWp).  On CUDA it adds one to
+    ``p3_dw.launches``; on the CPU it runs ``k1_dw_plain``."""
+    if obs.device.type == "cpu":
+        return k1_dw_plain(chain, obs)
+    t_mb, f, n = obs.shape
+    ws = _workspace(params, obs, t_mb).zero_()
+    h1, h2, a = params[0].shape[1], params[2].shape[1], params[4].shape[1]
+    row_h, row_dh, row_dp, rows = fu._ws_rows([h1, h2])
+    view = ws.view(rows, t_mb, fu._npad(n))
+    for r, x in [*zip(row_h, chain.hs), (row_dh, chain.dheads), *zip(row_dp, chain.dpres)]:
+        view[r:r + x.shape[0], :, :n] = x
+    out = _call(params, obs, None, (), ws, t_mb, fu.STAGE_DW)
+    p3_dw.launches += 1
+    dw1, dw2, dwp = _unpack(out, params, f)[:3]
+    return [dw1, dw2], dwp
+
+
+def zero_counts() -> None:
+    fm_grads.launches = 0
+    fm_grads.launches_by_kernel = {k: 0 for k in KERNELS}
+    p3_chain.launches = 0
+    p3_dw.launches = 0
+
+
+zero_counts()
 
 
 def ref_loss(params, obs, action, lpold, vold, adv, tgt, total: int = 0) -> torch.Tensor:

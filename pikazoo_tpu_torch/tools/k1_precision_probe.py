@@ -34,14 +34,20 @@ SOURCES = {mode: "fused_update_int8.cu" if kw.get("quant") == "int8" else "fused
            for mode, kw in MODES.items()}
 
 
-def float64_plain(args, kw):
-    """The plain version with every product in float64, rounded to f32."""
+def float64_products(fn, *args, **kw):
+    """``fn(*args, **kw)`` with every ``torch.matmul`` in float64, rounded to
+    f32: a plain version's float64 reference."""
     mm = torch.matmul
     torch.matmul = lambda a, b: mm(a.double(), b.double()).float()
     try:
-        return fu.fused_ppo_grads_fm_plain(*args, **kw)[0]
+        return fn(*args, **kw)
     finally:
         torch.matmul = mm
+
+
+def float64_plain(args, kw):
+    """K1's plain version with every product in float64, rounded to f32."""
+    return float64_products(fu.fused_ppo_grads_fm_plain, *args, **kw)[0]
 
 
 def worst(a, b) -> str:

@@ -156,3 +156,105 @@ def test_tool_runs_on_the_cpu_and_needs_a_card_by_default(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         fk.main(argv)
+
+
+# ------------------------------------------------- the split design's stages --
+@pytest.mark.parametrize("t_mb,n", [(2, 256), (3, 1000)], ids=["small", "ragged"])
+def test_stages_compose_to_the_plain_version(t_mb, n):
+    """Kernel A's plain version (p3_chain_plain) composed with kernel B's
+    (K1's k1_dw_plain) is fm_grads_plain, bit for bit: the card's two
+    kernels compute the function, split where they split it."""
+    params, leaves = make_inputs(t_mb, n, seed=2)
+    p, args = port(params, leaves)
+    chain = fk.p3_chain_plain(p, *args)
+    assert chain.dheads.shape == (A, t_mb, n) and chain.dheads.dtype == BF16
+    assert [h.shape[0] for h in (*chain.hs, *chain.dpres)] == [H] * 4
+    got = fk.compose(chain, *fk.k1_dw_plain(chain, args[0]))
+    want = fk.fm_grads_plain(p, *args)
+    for label, g, w in zip((*LABELS, "loss"), got, want):
+        assert torch.equal(g, w), label
+
+
+def test_stage_entries_run_their_plain_versions_on_the_cpu():
+    params, leaves = make_inputs(2, 128, seed=4)
+    p, args = port(params, leaves)
+    fk.zero_counts()
+    chain = fk.p3_chain(p, *args)
+    want = fk.p3_chain_plain(p, *args)
+    for g, w in zip((*chain.hs, chain.dheads, *chain.dpres, *chain.db, chain.dwv, chain.sums),
+                    (*want.hs, want.dheads, *want.dpres, *want.db, want.dwv, want.sums)):
+        assert torch.equal(g, w)
+    dw, dwp = fk.p3_dw(p, chain, args[0])
+    ref, refp = fk.k1_dw_plain(want, args[0])
+    assert all(torch.equal(a, b) for a, b in zip((*dw, dwp), (*ref, refp)))
+    assert (fk.p3_chain.launches, fk.p3_dw.launches, fk.fm_grads.launches) == (0, 0, 0)
+    assert fk.fm_grads.launches_by_kernel == {"p3_chain": 0, "p3_dw": 0}
+
+
+def test_columns_past_n_contribute_nothing():
+    """The workspace pads a ragged frame's columns with dheads = dpre = 0 (h =
+    tanh(b) there is not zero): kernel B's dW are bit for bit those of zero
+    padding, and those of no padding up to the f32 sums' order."""
+    params, leaves = make_inputs(2, 77, seed=5)
+    p, args = port(params, leaves)
+    chain = fk.p3_chain_plain(p, *args)
+    obs = args[0]
+    gen = torch.Generator().manual_seed(6)
+
+    def pad(x, fill):
+        out = (torch.rand((*x.shape[:-1], 128), generator=gen) + 0.5 if fill
+               else torch.zeros((*x.shape[:-1], 128))).to(x.dtype)
+        out[..., :77] = x
+        return out
+
+    padded = chain._replace(hs=[pad(h, True) for h in chain.hs], dheads=pad(chain.dheads, False),
+                            dpres=[pad(d, False) for d in chain.dpres])
+    zeros = padded._replace(hs=[h.clone() for h in padded.hs])
+    for h in zeros.hs:
+        h[..., 77:] = 0
+    obs_p = pad(obs, True)
+    obs_z = obs_p.clone()
+    obs_z[..., 77:] = 0
+    got = fk.k1_dw_plain(padded, obs_p)
+    want = fk.k1_dw_plain(zeros, obs_z)
+    assert all(torch.equal(a, b) for a, b in zip((*got[0], got[1]), (*want[0], want[1])))
+    ref = fk.k1_dw_plain(chain, obs)
+    for a, b in zip((*got[0], got[1]), (*ref[0], ref[1])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+def test_chain_keeps_dvalue_in_f32(case, monkeypatch):
+    """Kernel A's plain version keeps dvalue in f32: composed with kernel B's,
+    it sits within VALUE_PATH_REL of JAX on the leaves the value head
+    reaches; rounding dvalue to bf16, as K1 does, puts it outside."""
+    params, leaves, want = case
+    p, args = port(params, leaves)
+
+    def value_path(chain):
+        got = fk.compose(chain, *fk.k1_dw_plain(chain, args[0]))
+        return {label: rel_cos(g.numpy(), w)[0] for label, g, w in zip(LABELS, got, want)
+                if label in VALUE_PATH}
+
+    rel = value_path(fk.p3_chain_plain(p, *args))
+    assert max(rel.values()) <= VALUE_PATH_REL, rel
+    loss_and_dheads = fk._loss_and_dheads
+
+    def rounded(*a, **kw):
+        sums, dlogits, dvalue = loss_and_dheads(*a, **kw)
+        return sums, dlogits, dvalue.to(BF16).float()
+
+    monkeypatch.setattr(fk, "_loss_and_dheads", rounded)
+    rel = value_path(fk.p3_chain_plain(p, *args))
+    assert max(rel.values()) > VALUE_PATH_REL, rel
+
+
+def test_float64_reference_is_near_the_plain_version():
+    """The float64 reference phase 15 measures the kernel against: the plain
+    version with float64 products, within bf16's reach of it."""
+    params, leaves = make_inputs(2, 256, seed=7)
+    p, args = port(params, leaves)
+    exact = fk.fm_grads_float64(p, *args)
+    plain = fk.fm_grads_plain(p, *args)
+    for label, g, w in zip(LABELS, plain, exact):
+        rel, cos = rel_cos(g.numpy(), w.numpy())
+        assert rel <= 1e-4 and cos >= 0.99999999, (label, rel)

@@ -120,3 +120,101 @@ def test_tool_runs_on_the_cpu_and_needs_a_card_by_default(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         fr.main(argv)
+
+
+# ------------------------------------------------- the split design's stages --
+def small_inputs(t_mb, n, seed):
+    rng = np.random.default_rng(seed)
+    obs = torch.from_numpy(rng.random((t_mb, F, n), dtype=np.float32)).to(torch.bfloat16)
+    ws = [torch.from_numpy(np.float32(s) * rng.standard_normal(shape, dtype=np.float32))
+          for s, shape in ((0.3, (F, H)), (0.3, (H, H)), (0.05, (H, A)))]
+    return obs, ws
+
+
+@pytest.mark.parametrize("t_mb,n", [(2, 256), (3, 1000)], ids=["small", "ragged"])
+def test_stages_compose_to_the_plain_version(t_mb, n):
+    """Kernel A's plain version (mm_chain_plain) composed with kernel B's
+    (mm_dw_plain) is mm_grads_plain, bit for bit."""
+    obs, ws = small_inputs(t_mb, n, 1)
+    chain = fr.mm_chain_plain(obs, *ws)
+    assert [x.shape for x in chain] == [(F, t_mb, n), (H, t_mb, n), (H, t_mb, n), (A, t_mb, n),
+                                        (H, t_mb, n), (H, t_mb, n)]
+    assert all(x.dtype == torch.bfloat16 for x in chain)
+    got = fr.mm_dw_plain(chain)
+    want = fr.mm_grads_plain(obs, *ws)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_padded_columns_are_zero():
+    """The workspace pads a frame's columns past N with x = 0; with no bias
+    every operand kernel A writes there is zero, and the dW do not move."""
+    obs, ws = small_inputs(2, 77, 2)
+    padded = torch.zeros((2, F, 128), dtype=torch.bfloat16)
+    padded[..., :77] = obs
+    chain = fr.mm_chain_plain(padded, *ws)
+    for x in chain:
+        assert bool((x[..., 77:] == 0).all())
+        assert bool((x[..., :77] != 0).any())
+    got = fr.mm_dw_plain(chain)
+    want = fr.mm_grads_plain(obs, *ws)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-7)
+
+
+def test_plain_gives_both_variants_the_same_values(inputs):
+    """The variant picks an order on the card only: on the CPU both are the
+    plain version's values, bit for bit."""
+    obs, ws = inputs
+    x, w = to_torch(obs), [to_torch(v) for v in ws]
+    fr.zero_counts()
+    chain, phased = (fr.mm_grads(x, *w, phased=v) for v in (False, True))
+    assert all(torch.equal(a, b) for a, b in zip(chain, phased))
+    assert fr.mm_grads.launches == 0 and fr.mm_grads.launches_by_kernel == {"mm_chain": 0,
+                                                                            "mm_dw": 0}
+
+
+def test_stage_entries_run_their_plain_versions_on_the_cpu():
+    obs, ws = small_inputs(2, 130, 3)
+    chain = fr.mm_chain(obs, *ws, phased=True)
+    want = fr.mm_chain_plain(obs, *ws)
+    assert all(torch.equal(a, b) for a, b in zip(chain, want))
+    assert all(torch.equal(a, b) for a, b in zip(fr.mm_dw(chain), fr.mm_dw_plain(want)))
+    assert fr.mm_chain.launches == 0 and fr.mm_dw.launches == 0
+
+
+def test_workspace_and_chunks():
+    """2,208 bytes a column at hidden (256, 256); a chunk is whole frames
+    where one fits in CHUNK_COLS, else part of one; hidden widths are padded
+    to 256, the features to 48."""
+    widths = fr._widths(F, H, H, A)
+    assert widths == (48, 256, 256)
+    assert fr.ws_rows(*widths)[-1] * 2 == 2208
+    assert fr._chunk(32, 131072, 16384) == (1, 16384)
+    assert fr._chunk(32, 1000, 16384) == (16, 1000)
+    assert fr._chunk(3, 1000, 16384) == (3, 1000)
+    assert fr._widths(20, 48, 112, A) == (48, 256, 256)
+    w1, w2, wp = fr._padded(torch.ones(F, 48), torch.ones(48, 112), torch.ones(112, A), 48, 256, 256)
+    assert w1.shape == (48, 256) and float(w1.float().sum()) == F * 48
+    assert w2.shape == (256, 256) and wp.shape == (256, 32) and float(wp.float().sum()) == 112 * A
+    with pytest.raises(ValueError, match="up to 48 features"):
+        fr._widths(49, H, H, A)
+
+
+def test_float64_reference_is_near_the_plain_version():
+    obs, ws = small_inputs(2, 256, 4)
+    exact = fr.mm_grads_float64(obs, *ws)
+    plain = fr.mm_grads_plain(obs, *ws)
+    assert 0.0 < fr.distance(plain, exact) <= 1e-4
+
+
+def test_rounding_table_on_the_cpu_is_the_plain_versions():
+    """On the CPU every rounding length runs the plain versions, so each row
+    of the table is the plain row (-1): kernel B's distance on kernel A's
+    operands and the call's, each from its float64 reference."""
+    obs, ws = small_inputs(2, 200, 5)
+    table = fr.rounding_table(obs, *ws)
+    assert sorted(table) == [-1, 0, 1, 2, 4, 8, 16, 64, 256]
+    assert all(v == table[-1] for v in table.values())
+    b, call = table[-1]
+    assert 0.0 < b <= 1e-5 and 0.0 < call <= 1e-4
+    assert call == fr.distance(fr.mm_grads_plain(obs, *ws), fr.mm_grads_float64(obs, *ws))
