@@ -22,7 +22,9 @@ through its ``main``; then the trainer's user surface: the training CLI
 through the wrappers at full width, run once uninterrupted and once resumed
 from its checkpoint by a second call, the two bit-equal; the committed
 vs-AI policy against the rule AI at the JAX gate's settings; the golden
-trajectory replayed on the card.  Every phase
+trajectory replayed on the card; the PettingZoo drop-in (``pikazoo_v0.env``)
+at batch 1 on the card, the CPU and the native host engine, equal step by
+step and frame by frame, and the oracle draw mode card vs CPU.  Every phase
 prints at least one line; any failure raises and the script exits non-zero.  The line
 before the last lists every kernel with its launches on the main path, its
 error against its plain version, its time, its plain version's time and its
@@ -45,11 +47,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pikazoo_tpu_torch import EnvConfig, PikaZoo, _build, fused_rollout
+from pikazoo_tpu_torch import EnvConfig, PikaZoo, _build, fused_rollout, pikazoo_v0
 from pikazoo_tpu_torch.core import fused_step, predict, predict_cuda
 from pikazoo_tpu_torch.core.predict import landing_sims_any
 from pikazoo_tpu_torch.envs import OBS_HIGH, OBS_LOW
-from pikazoo_tpu_torch.envs.pika_volley import EnvState
+from pikazoo_tpu_torch.envs.pika_volley import EnvState, batch_keys
 from pikazoo_tpu_torch.policies import load_policy, policy_path
 from pikazoo_tpu_torch.tools import compaction_probe, fm_kernel_probe, fm_roofline, k3_probe
 from pikazoo_tpu_torch.tools._timing import HOLD_CYCLES
@@ -1574,6 +1576,112 @@ def golden_on_card(card: str):
           f"{launches} landing launches [{card}]")
 
 
+# Phase 19: the PettingZoo drop-in.  The seed's AI-vs-AI game to 2 ends at
+# step 404 of its first episode (the port's native engine on a CPU), so the
+# run crosses an episode end and the reset that carries its state.
+PZ_KW = dict(seed=37, winning_score=2, is_player1_computer=True, is_player2_computer=True,
+             render_mode="rgb_array")
+PZ_STEPS, PZ_FRAME_EVERY = 1000, 100
+PZ_BACKENDS = {"card": dict(), "CPU": dict(device="cpu"), "native": dict(backend="native")}
+ORACLE_CAP = 1024
+
+
+def drive_adapter(env, actions):
+    """PZ_STEPS steps of one adapter, resetting at each episode end: (what
+    it returned, as host values; frames every PZ_FRAME_EVERY steps; episode
+    ends; seconds in ``step`` calls)."""
+    record, frames, ends, seconds = [env.reset()[0]], [env.render()], 0, 0.0
+    for t in range(PZ_STEPS):
+        if not env.agents:
+            ends += 1
+            record.append(env.reset()[0])
+        acts = {a: int(actions[t, i]) for i, a in enumerate(env.agents)}
+        t0 = time.perf_counter()
+        obs, rew, term, trunc, infos = env.step(acts)
+        seconds += time.perf_counter() - t0
+        record.append((obs, rew, term, trunc,
+                       {a: list(info["score"]) for a, info in infos.items()}))
+        if t % PZ_FRAME_EVERY == PZ_FRAME_EVERY - 1:
+            frames.append(env.render())
+    return record, frames, ends, seconds
+
+
+def same_records(a, b) -> bool:
+    """Two adapters' returns equal, arrays by value, dicts key by key."""
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(same_records(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_records(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+def pettingzoo_drop_in(card: str):
+    """Phase 19 (a): ``pikazoo_v0.env`` on the card, on the CPU and on the
+    native engine, the same seed and actions: every return equal step by
+    step, through an episode end and its carried reset; the rgb_array frames
+    equal every PZ_FRAME_EVERY steps; one K2 launch a step on the card."""
+    actions = np.random.default_rng(19).integers(0, 18, (PZ_STEPS, 2))
+    runs = {}
+    for name, kw in PZ_BACKENDS.items():
+        env = pikazoo_v0.env(**PZ_KW, **kw)
+        predict_cuda.landing_sims_batched.launches = 0
+        runs[name] = drive_adapter(env, actions)
+        launches = predict_cuda.landing_sims_batched.launches
+        env.close()
+        want = PZ_STEPS if name == "card" else 0
+        if launches != want:
+            raise AssertionError(f"phase 19 [{name}]: {launches} landing launches in "
+                                 f"{PZ_STEPS} steps, expected {want}")
+    record, frames, ends, _ = runs["card"]
+    if ends < 1:
+        raise AssertionError(f"phase 19: no episode ended in {PZ_STEPS} steps")
+    for name in ("CPU", "native"):
+        other = runs[name]
+        for i, (a, b) in enumerate(zip(record, other[0], strict=True)):
+            if not same_records(a, b):
+                raise AssertionError(f"phase 19: card != {name} at record {i}")
+        for i, (a, b) in enumerate(zip(frames, other[1], strict=True)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"phase 19: card frame {i} != {name} frame")
+    times = ", ".join(f"{name} {run[3] * 1e3 / PZ_STEPS:.3f}" for name, run in runs.items())
+    print(f"phase 19 PettingZoo drop-in: pikazoo_v0.env AI vs AI to 2, {PZ_STEPS} steps, "
+          f"{ends} episode end(s) and carried reset(s); card, CPU and native equal on every "
+          f"return, {len(frames)} rgb_array frames equal; {PZ_STEPS} landing launches on the "
+          f"card, one a step; ms a step (batch 1): {times} [{card}]")
+
+
+def oracle_card_vs_cpu(card: str):
+    """Phase 19 (b): the oracle draw mode, both seats the rule AI, B =
+    PARITY_BATCH x PARITY_FRAMES, a synthetic (B, ORACLE_CAP) oracle: every
+    leaf and the draw counter equal on the card and the CPU, frame by frame."""
+    env = PikaZoo(EnvConfig(winning_score=3, auto_reset=False, is_player1_computer=True,
+                            is_player2_computer=True))
+    gen = np.random.default_rng(20)
+    oracle = torch.from_numpy(gen.integers(0, 2, (PARITY_BATCH, ORACLE_CAP)).astype(np.int32))
+    actions = torch.from_numpy(gen.integers(0, 18, (PARITY_FRAMES, PARITY_BATCH, 2))
+                               .astype(np.int32))
+    keys = batch_keys(20, PARITY_BATCH, "cpu")
+    on_cpu = env._reset_from_keys(keys, oracle=oracle)
+    oracle_card = oracle.cuda()
+    on_card = env._reset_from_keys(keys.cuda(), oracle=oracle_card)
+    flat = lambda out: torch.cat([leaf.reshape(-1) for leaf in leaves(out)])
+    for t in range(-1, PARITY_FRAMES):
+        if t >= 0:
+            on_card = env.step(on_card[0], actions[t].cuda(), oracle_card)
+            on_cpu = env.step(on_cpu[0], actions[t], oracle)
+        if not torch.equal(flat(on_card).cpu(), flat(on_cpu)):  # one copy a frame
+            bad = [i for i, (g, c) in enumerate(zip(leaves(on_card), leaves(on_cpu)))
+                   if not torch.equal(g.cpu(), c)]
+            raise AssertionError(f"phase 19 oracle mode: card != CPU at frame {t}, leaves {bad}")
+    draws = on_cpu[0].draw_counter
+    print(f"phase 19 oracle mode card vs CPU: AI vs AI, B={PARITY_BATCH} x {PARITY_FRAMES} "
+          f"frames, a ({PARITY_BATCH}, {ORACLE_CAP}) oracle, every EnvState leaf and TimeStep "
+          f"field equal on every frame; draws read an env {int(draws.min())}-"
+          f"{int(draws.max())} [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
@@ -1873,6 +1981,11 @@ def main() -> int:
     wrapped_training(card)
     evaluate_policy(card)
     golden_on_card(card)
+
+    # Phase 19: the PettingZoo drop-in at batch 1 on three backends, and the
+    # oracle draw mode card vs CPU.
+    pettingzoo_drop_in(card)
+    oracle_card_vs_cpu(card)
 
     ms, plain_ms, k2_bound = timed[f"AI self-play frame {HARVEST_FRAME}"]
     rows = K1_FULL[0] * K1_FULL[1]

@@ -13,8 +13,9 @@ four in its int8 mode (``csrc/fused_update_int8.cu``), or row-major as two
 (``csrc/k4_split.cu``); all are built with ``nvcc`` at first use into
 ``build/kernels/``.  On the CPU they run as plain PyTorch.  The entry
 points (``PikaZoo.reset`` / ``reset_batch``, ``make_ppo_trainer``,
-``load_policy``, the evaluation functions, the ``train.run`` CLI) run on the
-card unless the caller asks for the CPU.
+``load_policy``, the evaluation functions, the ``train.run`` CLI, the
+PettingZoo drop-in ``pikazoo_v0.env``) run on the card unless the caller asks
+for the CPU.
 
 Layers (bottom up):
   core/      physics of one frame: ball, players, collisions, landing
@@ -29,6 +30,12 @@ Layers (bottom up):
   policies/  the committed trained policies as ``.pt`` files, ``load_policy``
   utils/     metrics logging, throughput, ``torch.profiler`` traces, state
              validation
+  render/    the host renderer (pixel-art sprites, or a flat style)
+  native/    the C++ host engine and its CPython fast path, built with
+             g++ / gcc at first use into ``build/native/``
+  compat/    the PettingZoo ``ParallelEnv`` adapter (torch or native
+             backend) and its dict-level wrappers; ``pikazoo_v0`` names it
+  parity/    record the reference env; replay a trace in oracle mode
   convert    EnvState and network weights to and from the JAX package's
              numpy leaves
 """

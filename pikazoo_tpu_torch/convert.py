@@ -36,7 +36,8 @@ def env_state_from_numpy(state, device="cpu") -> EnvState:
         arr = np.asarray(value)
         if arr.dtype not in (np.int32, np.uint32):
             raise TypeError(f"env state leaves are int32 or uint32, got {arr.dtype}")
-        return torch.tensor(np.ascontiguousarray(arr).view(np.int32),
+        # ascontiguousarray makes a 0-d array 1-d: keep the leaf's shape.
+        return torch.tensor(np.ascontiguousarray(arr).view(np.int32).reshape(arr.shape),
                             device=device)
 
     fields = {}

@@ -17,12 +17,18 @@ to 32 bits, because torch has no unsigned 32-bit add, shift or remainder.
 threefry key data, bit for bit: the wrappers and the evaluation harness derive
 their keys and the random opponent's actions with them, as the JAX package
 does.
+
+For trajectory parity with a recorded stream, ``DrawState`` also takes an
+*oracle*: ``oracle[..., counter]`` supplies each value in place of the
+threefry draw, with the same counter semantics (the JAX package's oracle
+mode).  :func:`site_value_host` is the stream on plain Python ints, for the
+host draws of the coupled renderer.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -154,18 +160,46 @@ def site_value(key: torch.Tensor, counter: torch.Tensor, upper: int
     return (bits % upper).to(torch.int32)
 
 
+def site_value_host(key_bits, counter: int, upper: int) -> int:
+    """:func:`site_value` on plain Python ints, with no device work: the
+    value of draw slot ``counter`` for the 2-word key ``key_bits`` (uint32
+    or int32 words, any sequence or array)."""
+    k0 = int(key_bits[0]) & _MASK
+    k1 = int(key_bits[1]) & _MASK
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY_CONST)
+    x0 = (int(counter) + k0) & _MASK
+    x1 = (SITE_TAG + k1) & _MASK
+    for block in range(5):
+        for r in _ROTATIONS[block % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = ((x1 << r) & _MASK) | (x1 >> (32 - r))
+            x1 ^= x0
+        inject = block + 1
+        x0 = (x0 + ks[inject % 3]) & _MASK
+        x1 = (x1 + ks[(inject + 1) % 3] + inject) & _MASK
+    return x0 % upper
+
+
 class DrawState(NamedTuple):
-    """The per-env stream key (``(..., 2)`` int32 bits, constant for the
-    step) and the masked cumulative draw counter (``(...)`` int32)."""
+    """The per-env stream key (``S + (2,)`` int32 bits, constant for the
+    step), the masked cumulative draw counter (``S`` int32) and an optional
+    oracle, ``S + (cap,)`` int32 pre-recorded draw values."""
 
     key: torch.Tensor
     counter: torch.Tensor
+    oracle: Optional[torch.Tensor] = None
 
 
 def draw(ds: DrawState, consume: torch.Tensor, upper: int
          ) -> Tuple[torch.Tensor, DrawState]:
     """One potential draw site: uniform int32 in ``[0, upper)`` where
     ``consume`` (bool) is set, 0 elsewhere; the counter advances only where
-    it is set."""
-    value = torch.where(consume, site_value(ds.key, ds.counter, upper), 0)
+    it is set.  With an oracle the value is ``oracle[..., counter]``, the
+    counter clipped to the oracle's capacity, taken on the device."""
+    if ds.oracle is not None:
+        index = ds.counter.clamp(0, ds.oracle.shape[-1] - 1).long().unsqueeze(-1)
+        value = ds.oracle.gather(-1, index).squeeze(-1)
+    else:
+        value = site_value(ds.key, ds.counter, upper)
+    value = torch.where(consume, value, 0)
     return value, ds._replace(counter=ds.counter + consume.to(torch.int32))

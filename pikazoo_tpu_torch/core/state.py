@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from pikazoo_tpu_torch.core import constants as C
@@ -159,3 +160,30 @@ def round_init_ball(b: BallState, do: torch.Tensor,
         punch_effect_radius=w(0, b.punch_effect_radius),
         is_power_hit=w(0, b.is_power_hit),
     )
+
+
+def _leaves(tree):
+    if isinstance(tree, tuple):
+        return [leaf for sub in tree for leaf in _leaves(sub)]
+    return [tree]
+
+
+def _rebuild(tree, values):
+    if isinstance(tree, tuple):
+        return type(tree)(*(_rebuild(sub, values) for sub in tree))
+    return next(values)
+
+
+def host_state(state):
+    """The same nested tuple with numpy leaves.  Tensor leaves (of one dtype,
+    on one device) are joined on their device and copied to the host at
+    once: one transfer, not one synchronising read a field."""
+    leaves = _leaves(state)
+    if not any(torch.is_tensor(leaf) for leaf in leaves):
+        return _rebuild(state, iter(np.asarray(leaf) for leaf in leaves))
+    host = torch.cat([leaf.detach().reshape(-1) for leaf in leaves]).cpu().numpy()
+    out, start = [], 0
+    for leaf in leaves:
+        out.append(host[start:start + leaf.numel()].reshape(tuple(leaf.shape)))
+        start += leaf.numel()
+    return _rebuild(state, iter(out))

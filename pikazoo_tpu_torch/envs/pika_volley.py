@@ -11,13 +11,16 @@ dimension out: every function takes leaves of one batch shape ``S``
 Every leaf equals the JAX package's for the same key and actions; the tests
 hold them frame by frame.  With a computer seat, each frame runs the landing
 simulation once for the whole batch, on CUDA as one launch of the
-hand-written kernel (``core.predict_cuda``).
+hand-written kernel (``core.predict_cuda``).  ``reset`` takes the previous
+state (``carry``), a starting draw counter and an oracle of recorded draws,
+and ``step`` the oracle, as the JAX package's do: the PettingZoo adapter
+(``compat``) and the parity replay use them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -165,6 +168,15 @@ def env_frame(cfg: EnvConfig, ds: DrawState, p1: PlayerState,
                        reward_p1, sounds)
 
 
+def _checked_oracle(oracle: Optional[torch.Tensor], device: torch.device
+                    ) -> Optional[torch.Tensor]:
+    """``oracle`` after checking that it is int32 on the state's device."""
+    if oracle is not None and (oracle.dtype != I32 or oracle.device != device):
+        raise ValueError(f"an oracle is int32 on the state's device ({device}), "
+                         f"got {oracle.dtype} on {oracle.device}")
+    return oracle
+
+
 def batch_keys(key, batch_size: int, device="cuda") -> torch.Tensor:
     """The ``(batch_size, 2)`` per-env key bits of :meth:`PikaZoo.reset_batch`:
     env i's key is ``fold_key(key, i)``, as in the JAX package.  ``key`` is
@@ -189,12 +201,31 @@ class PikaZoo:
     def __init__(self, config: EnvConfig = EnvConfig()):
         self.config = config
 
-    def _reset_from_keys(self, keys: torch.Tensor) -> Tuple[EnvState, TimeStep]:
+    def _reset_from_keys(self, keys: torch.Tensor, *, counter=0,
+                         oracle: Optional[torch.Tensor] = None,
+                         carry: Optional[EnvState] = None
+                         ) -> Tuple[EnvState, TimeStep]:
         """Start new games from per-env key bits ``S + (2,)``; leaves get the
-        batch shape S."""
+        batch shape S.  ``counter``, ``oracle`` and ``carry`` as in
+        :meth:`reset`."""
         shape, device = keys.shape[:-1], keys.device
         zeros = lambda s=(): torch.zeros(shape + s, dtype=I32, device=device)
-        ds = DrawState(key=keys, counter=zeros())
+        ds = DrawState(key=keys,
+                       counter=zeros() + torch.as_tensor(counter, dtype=I32,
+                                                         device=device),
+                       oracle=_checked_oracle(oracle, device))
+        if carry is None:
+            p1 = init_player_construction(False, shape, device)
+            p2 = init_player_construction(True, shape, device)
+            ball = init_ball_construction(shape, device)
+            latch = zeros((2,))
+        else:
+            if carry.scores.device != device:
+                raise ValueError(f"carry on {carry.scores.device}, keys on {device}")
+            clear = lambda p: p._replace(is_winner=torch.zeros_like(p.is_winner),
+                                         game_ended=torch.zeros_like(p.game_ended))
+            p1, p2, ball = clear(carry.p1), clear(carry.p2), carry.ball
+            latch = carry.power_hit_key_down_prev
         true = torch.ones(shape, dtype=torch.bool, device=device)
         b1, ds = draw(ds, true, 5)
         b2, ds = draw(ds, true, 5)
@@ -205,13 +236,9 @@ class PikaZoo:
             server = (sv == 0).to(I32)
         else:
             server = zeros()
-        p1 = round_init_player(init_player_construction(False, shape, device),
-                               true, b1, is_player2=False)
-        p2 = round_init_player(init_player_construction(True, shape, device),
-                               true, b2, is_player2=True)
-        ball = round_init_ball(init_ball_construction(shape, device), true,
-                               server)
-        latch = zeros((2,))
+        p1 = round_init_player(p1, true, b1, is_player2=False)
+        p2 = round_init_player(p2, true, b2, is_player2=True)
+        ball = round_init_ball(ball, true, server)
         state = EnvState(
             p1=p1, p2=p2, ball=ball,
             power_hit_key_down_prev=latch,
@@ -234,11 +261,23 @@ class PikaZoo:
         )
         return state, ts
 
-    def reset(self, key, device="cuda") -> Tuple[EnvState, TimeStep]:
+    def reset(self, key, device="cuda", *, counter=0,
+              oracle: Optional[torch.Tensor] = None,
+              carry: Optional[EnvState] = None) -> Tuple[EnvState, TimeStep]:
         """Start one game (0-d leaves) from an int seed or 2-word key data,
         used directly as the env's stream key (like the JAX ``reset``), on
-        ``device`` (the card unless the caller asks for the CPU)."""
-        return self._reset_from_keys(key_data(key, device))
+        ``device`` (the card unless the caller asks for the CPU).
+
+        ``carry`` keeps the reference's construction-vs-reset split: the
+        players (``is_winner`` and ``game_ended`` cleared), the ball and the
+        input latches of the previous :class:`EnvState` go into the new game,
+        as the reference's partially reset objects do; without it the game
+        starts from a fresh construction.  ``counter`` (an int or an int32
+        tensor of the batch shape) starts the draw counter, and ``oracle``
+        (``(cap,)`` int32 on ``device``) supplies the reset's draws, as in the
+        JAX package's oracle mode."""
+        return self._reset_from_keys(key_data(key, device), counter=counter,
+                                     oracle=oracle, carry=carry)
 
     def reset_batch(self, key, batch_size: int, device="cuda"
                     ) -> Tuple[EnvState, TimeStep]:
@@ -247,7 +286,8 @@ class PikaZoo:
         the port and the JAX package start from identical states."""
         return self._reset_from_keys(batch_keys(key, batch_size, device))
 
-    def _advance(self, state: EnvState, a1: torch.Tensor, a2: torch.Tensor
+    def _advance(self, state: EnvState, a1: torch.Tensor, a2: torch.Tensor,
+                 oracle: Optional[torch.Tensor] = None
                  ) -> Tuple[EnvState, FrameResult]:
         """One frame of state evolution from per-seat actions of batch shape
         S, without observations (shared by ``step`` and the learner path)."""
@@ -255,7 +295,8 @@ class PikaZoo:
             if a.device != state.scores.device:
                 raise ValueError(f"actions on {a.device}, state on "
                                  f"{state.scores.device}")
-        ds = DrawState(key=state.rng_key, counter=state.draw_counter)
+        ds = DrawState(key=state.rng_key, counter=state.draw_counter,
+                       oracle=_checked_oracle(oracle, state.scores.device))
         prev = state.power_hit_key_down_prev
         inp1, latch1 = decode_action(a1, prev[..., 0])
         inp2, latch2 = decode_action(a2, prev[..., 1])
@@ -279,12 +320,15 @@ class PikaZoo:
         )
         return new_state, fr
 
-    def step(self, state: EnvState, actions: torch.Tensor
+    def step(self, state: EnvState, actions: torch.Tensor,
+             oracle: Optional[torch.Tensor] = None
              ) -> Tuple[EnvState, TimeStep]:
         """Advance every env one frame.  ``actions`` is ``S + (2,)`` int
         (one per seat, in [0, 18); out-of-range actions clamp as in JAX), on
-        the state's device."""
-        new_state, fr = self._advance(state, actions[..., 0], actions[..., 1])
+        the state's device.  ``oracle`` (``S + (cap,)`` int32) supplies the
+        frame's draws in place of the threefry stream."""
+        new_state, fr = self._advance(state, actions[..., 0], actions[..., 1],
+                                      oracle)
         ts = TimeStep(
             obs=assemble_obs(fr.p1, fr.p2, fr.ball,
                              new_state.power_hit_key_down_prev),

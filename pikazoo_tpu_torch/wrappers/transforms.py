@@ -5,7 +5,8 @@ Counterparts of ``pikazoo_tpu.wrappers.transforms``, each a thin layer over a
 ``reset_batch`` / ``step`` / ``step_batch`` with the port's signatures, on
 leaves of any batch shape.  Every reset goes through ``_reset_from_keys``
 with the per-env keys ``PikaZoo`` derives, so a stateless wrapper never
-changes the trajectory of a seed.  Stateless wrappers pass the inner state
+changes the trajectory of a seed; ``reset``'s ``counter`` / ``oracle`` /
+``carry`` and ``step``'s ``oracle`` pass through to the env, as in JAX.  Stateless wrappers pass the inner state
 through; :class:`RecordEpisodeStatistics` and :class:`ConvertSingleAgent`
 wrap it in their own NamedTuple.  Observations, rewards, termination and
 episode statistics equal the JAX wrappers' bit for bit
@@ -52,17 +53,17 @@ class _Wrapper:
     def num_actions(self) -> int:
         return self.env.num_actions
 
-    def _reset_from_keys(self, keys: torch.Tensor):
-        return self.env._reset_from_keys(keys)
+    def _reset_from_keys(self, keys: torch.Tensor, **kwargs):
+        return self.env._reset_from_keys(keys, **kwargs)
 
-    def reset(self, key, device="cuda"):
-        return self._reset_from_keys(key_data(key, device))
+    def reset(self, key, device="cuda", **kwargs):
+        return self._reset_from_keys(key_data(key, device), **kwargs)
 
     def reset_batch(self, key, batch_size: int, device="cuda"):
         return self._reset_from_keys(batch_keys(key, batch_size, device))
 
-    def step(self, state, actions):
-        return self.env.step(state, actions)
+    def step(self, state, actions, oracle=None):
+        return self.env.step(state, actions, oracle)
 
     def step_batch(self, state, actions):
         return self.step(state, actions)
@@ -73,10 +74,10 @@ class SimplifyAction(_Wrapper):
 
     num_actions = 13
 
-    def step(self, state, actions):
+    def step(self, state, actions, oracle=None):
         mapped = torch.stack([simplify(SIMPLIFY_P1, actions[..., 0]),
                               simplify(SIMPLIFY_P2, actions[..., 1])], dim=-1)
-        return self.env.step(state, mapped)
+        return self.env.step(state, mapped, oracle)
 
     def step_batch_learner_fm(self, state, a1: torch.Tensor, a2: torch.Tensor):
         """The learner step on the seats' 13-action choices, each mapped
@@ -108,8 +109,8 @@ class RewardByBallPosition(_Wrapper):
         table = self.additional_reward.to(ball_x.device)
         return table[pos], table[4 + pos]
 
-    def step(self, state, actions):
-        state, ts = self.env.step(state, actions)
+    def step(self, state, actions, oracle=None):
+        state, ts = self.env.step(state, actions, oracle)
         bonus = torch.stack(self._bonus(ts.obs[..., 0, 26], ts.obs[..., 0, 27]), dim=-1)
         return state, ts._replace(rewards=ts.rewards.to(torch.float32) + bonus)
 
@@ -129,8 +130,8 @@ class RewardInNormalState(_Wrapper):
         super().__init__(env)
         self.reward = reward
 
-    def step(self, state, actions):
-        state, ts = self.env.step(state, actions)
+    def step(self, state, actions, oracle=None):
+        state, ts = self.env.step(state, actions, oracle)
         r = ts.rewards
         # JAX's promotion: a Python int fill is int32, a float one float32.
         fill = torch.tensor(self.reward, dtype=torch.int32 if isinstance(self.reward, int)
@@ -150,12 +151,12 @@ class NormalizeObservation(_Wrapper):
         span = torch.tensor(_SPAN_F, device=device)
         return ts._replace(obs=(ts.obs.to(torch.float32) - low) / span)
 
-    def _reset_from_keys(self, keys: torch.Tensor):
-        state, ts = self.env._reset_from_keys(keys)
+    def _reset_from_keys(self, keys: torch.Tensor, **kwargs):
+        state, ts = self.env._reset_from_keys(keys, **kwargs)
         return state, self._norm(ts)
 
-    def step(self, state, actions):
-        state, ts = self.env.step(state, actions)
+    def step(self, state, actions, oracle=None):
+        state, ts = self.env.step(state, actions, oracle)
         return state, self._norm(ts)
 
 
@@ -179,14 +180,14 @@ class RecordEpisodeStatistics(_Wrapper):
     ``done`` is set.  The accumulators zero on the termination frame, as
     JAX's do, so the wrapper composes with auto reset."""
 
-    def _reset_from_keys(self, keys: torch.Tensor):
-        inner, ts = self.env._reset_from_keys(keys)
+    def _reset_from_keys(self, keys: torch.Tensor, **kwargs):
+        inner, ts = self.env._reset_from_keys(keys, **kwargs)
         shape, device = keys.shape[:-1] + (2,), keys.device
         return EpisodeStatsState(inner, torch.zeros(shape, dtype=torch.float32, device=device),
                                  torch.zeros(shape, dtype=torch.int32, device=device)), ts
 
-    def step(self, state: EpisodeStatsState, actions):
-        inner, ts = self.env.step(state.inner, actions)
+    def step(self, state: EpisodeStatsState, actions, oracle=None):
+        inner, ts = self.env.step(state.inner, actions, oracle)
         ep_ret = state.episode_return + ts.rewards.to(torch.float32)
         ep_len = state.episode_length + 1
         done = ts.terminated == 1
@@ -212,18 +213,18 @@ class ConvertSingleAgent(_Wrapper):
         self.me = 0 if side == "player_1" else 1
         self.opponent_actions = env.num_actions
 
-    def _reset_from_keys(self, keys: torch.Tensor):
+    def _reset_from_keys(self, keys: torch.Tensor, **kwargs):
         keys = split(keys)
-        inner, ts = self.env._reset_from_keys(keys[..., 1, :])
+        inner, ts = self.env._reset_from_keys(keys[..., 1, :], **kwargs)
         return SingleAgentState(inner, keys[..., 0, :]), self._view(ts)
 
-    def step(self, state: SingleAgentState, action):
+    def step(self, state: SingleAgentState, action, oracle=None):
         keys = split(state.key)
         opp = randint(keys[..., 1, :], (), 0, self.opponent_actions)
         pair = [action.to(torch.int32), opp]
         if self.me == 1:
             pair.reverse()
-        inner, ts = self.env.step(state.inner, torch.stack(pair, dim=-1))
+        inner, ts = self.env.step(state.inner, torch.stack(pair, dim=-1), oracle)
         return SingleAgentState(inner, keys[..., 0, :]), self._view(ts)
 
     def _view(self, ts):

@@ -64,15 +64,21 @@ def test_carried_state_steps_like_jax(computer):
 
 
 def test_port_imports_no_jax():
-    """The machine with the card has no JAX: neither the package nor
-    chip_smoke.py may import it."""
+    """The machine with the card has no JAX, gymnasium, pettingzoo or pygame:
+    neither the package (the PettingZoo drop-in included) nor chip_smoke.py
+    may import JAX, and none of them imports the other three at import
+    time."""
     code = ("import sys; import pikazoo_tpu_torch, pikazoo_tpu_torch.convert, "
             "pikazoo_tpu_torch.core.predict_cuda, pikazoo_tpu_torch.train, "
             "pikazoo_tpu_torch.train.ppo, pikazoo_tpu_torch.train.fused_update, "
             "pikazoo_tpu_torch.train.run, pikazoo_tpu_torch.tools.k1_precision_probe, "
+            "pikazoo_tpu_torch.pikazoo_v0, pikazoo_tpu_torch.compat, "
+            "pikazoo_tpu_torch.compat.wrappers, pikazoo_tpu_torch.render, "
+            "pikazoo_tpu_torch.native, pikazoo_tpu_torch.parity, pikazoo_tpu_torch.version, "
             "chip_smoke; "
             "bad = sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'pikazoo_tpu')); "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'pikazoo_tpu', 'gymnasium', "
+            "'pettingzoo', 'pygame')); "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -1,22 +1,38 @@
 """The port's entry points run on the card unless the caller asks for the
-CPU: the default ``device`` of ``PikaZoo.reset`` / ``reset_batch`` and
-``make_ppo_trainer`` is CUDA, and the training CLI never drops to the CPU on
-its own."""
+CPU: the default ``device`` of ``PikaZoo.reset`` / ``reset_batch``,
+``make_ppo_trainer``, the PettingZoo drop-in (``compat.raw_env`` /
+``pikazoo_v0.env``) and the parity replay is CUDA, and the training CLI
+never drops to the CPU on its own."""
 
 import inspect
 
 import pytest
 import torch
 
-from pikazoo_tpu_torch import EnvConfig, PikaZoo
+from pikazoo_tpu_torch import EnvConfig, PikaZoo, compat, pikazoo_v0
+from pikazoo_tpu_torch.parity import replay_and_compare
 from pikazoo_tpu_torch.train import PPOConfig, make_ppo_trainer
 from pikazoo_tpu_torch.train import run as port_run
 
 
-@pytest.mark.parametrize("fn", [PikaZoo.reset, PikaZoo.reset_batch, make_ppo_trainer],
-                         ids=["reset", "reset_batch", "make_ppo_trainer"])
+@pytest.mark.parametrize("fn", [PikaZoo.reset, PikaZoo.reset_batch, make_ppo_trainer,
+                                compat.raw_env, replay_and_compare],
+                         ids=["reset", "reset_batch", "make_ppo_trainer", "compat.raw_env",
+                              "replay_and_compare"])
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_pettingzoo_drop_in_without_a_card_raises(monkeypatch):
+    """``pikazoo_v0.env()`` builds its env on the card: without one it
+    raises instead of running on the CPU; ``device="cpu"`` runs there."""
+    assert pikazoo_v0.env is compat.env and pikazoo_v0.raw_env is compat.raw_env
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises((RuntimeError, AssertionError)):
+        pikazoo_v0.env(seed=0)
+    env = pikazoo_v0.env(seed=0, device="cpu")
+    env.reset()
+    assert env._state.scores.device.type == "cpu"
 
 
 def test_cli_defaults_to_the_card():
