@@ -24,8 +24,12 @@ from its checkpoint by a second call, the two bit-equal; the committed
 vs-AI policy against the rule AI at the JAX gate's settings; the golden
 trajectory replayed on the card; the PettingZoo drop-in (``pikazoo_v0.env``)
 at batch 1 on the card, the CPU and the native host engine, equal step by
-step and frame by frame, and the oracle draw mode card vs CPU.  Every phase
-prints at least one line; any failure raises and the script exits non-zero.  The line
+step and frame by frame, and the oracle draw mode card vs CPU; the landing
+kernel's leap, hybrid and mixed modes with the ydir split, each bit-equal to
+its plain version and to the frame loop, timed beside it; and the meshed
+trainer: a one-rank nccl mesh bit-equal to the unmeshed trainer, two ranks
+sharing the card over gloo against one rank, and the CLI's --distributed.
+Every phase prints at least one line; any failure raises and the script exits non-zero.  The line
 before the last lists every kernel with its launches on the main path, its
 error against its plain version, its time, its plain version's time and its
 bound; the last line is a JSON object naming the device.  Without a CUDA
@@ -37,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -251,7 +256,7 @@ def rollout_checks(env: PikaZoo, batch: int, frames: int, actions_fn, card: str,
 
 
 def zero_counts():
-    predict_cuda.landing_sims_batched.launches = 0
+    predict_cuda.zero_counts()
     fused_rollout.launches = 0
     fused_update.zero_fm_counts()
     fused_ppo_grads.launches = 0
@@ -1682,6 +1687,353 @@ def oracle_card_vs_cpu(card: str):
           f"{int(draws.max())} [{card}]")
 
 
+# Phase 20: K2's landing-loop algorithms.  The modes held (algo, split): every
+# loop, the two mixes, each with one candidate loop and with the ydir split.
+K2_ALGOS = ("iter", "leap", "hyb", "leap,iter", "iter,leap")
+K2_SPLITS = ("none", "ydir")
+# Integer operations of one leap jump on the card's common path (a lane
+# outside the net band), counted from csrc/landing_sim.cuh: leap_span's wall
+# span (compares, selects, subtractions, one division), band-entry span (one
+# division), ground/ceiling distance and its k_disp (the float seed:
+# conversions, a product, sqrt, each one operation; the two integer checks
+# of the displacement, four each), the cap and the three minima, then
+# leap_jump's four updates.  A lane in the band runs two k_disp more.
+LEAP_JUMP_OPS = 68
+# The default unroll of the hybrid loop (exact iterations after a jump).
+HYB_UNROLL = predict.HYB_UNROLL
+
+
+def leap_corpus(device, n: int = 20_000):
+    """tests/test_leap_sim.py's state corpus, numpy-seeded: the boxes, the
+    net band's boundary lattice and the |vy| <= 2000 cap box."""
+    rng = np.random.default_rng(0)
+
+    def box(m, xlo, xhi, ylo, yhi, vlo, vhi, wlo, whi):
+        return (rng.integers(xlo, xhi, m), rng.integers(ylo, yhi, m),
+                rng.integers(vlo, vhi, m), rng.integers(wlo, whi, m))
+
+    cases = [box(n, 0, 453, -300, 253, -64, 65, -128, 129),
+             box(n, 180, 253, 150, 253, -6, 7, -12, 13),
+             box(n // 2, 0, 45, -50, 253, -30, 31, -40, 41),
+             box(n // 2, 408, 453, -50, 253, -30, 31, -40, 41),
+             box(n // 2, 0, 453, 230, 260, -20, 21, -30, 31),
+             box(n // 2, 0, 453, -10, 15, -20, 21, -30, 31),
+             box(n // 4, 0, 453, -10_000, 253, -64, 65, -2000, 2001)]
+    xs = np.tile(np.array([191, 192, 193, 215, 216, 217, 239, 240, 241]), 500)
+    cases.append((xs, rng.integers(170, 200, xs.size), rng.integers(-4, 5, xs.size),
+                  rng.integers(-8, 9, xs.size)))
+    return tuple(torch.tensor(np.concatenate([c[i] for c in cases]), dtype=torch.int32,
+                              device=device) for i in range(4))
+
+
+def lane_work(x, y, vx, vy, full_rule: bool, algo: str):
+    """A counting pass of the plain primitives (``predict.make_leap_step``)
+    as one card thread runs each lane under ``algo``: per lane, the trips of
+    its loop (a frame loop's trip is an iteration, a leap's a jump and an
+    iteration, a hybrid's a jump and up to HYB_UNROLL iterations), its jumps
+    and its exact iterations, int64."""
+    one_leap, jump, exact = predict.make_leap_step(full_rule)
+    carry = predict.leap_carry(x, y, vx, vy)
+    trips, jumps, iters = (torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+                           for _ in range(3))
+    while bool((carry[2] != 0).any()):
+        live = carry[2] != 0
+        trips += live
+        if algo == "iter":
+            iters += live
+            carry = exact(carry)
+        elif algo == "leap":
+            jumps += live
+            iters += live
+            carry = one_leap(carry)
+        else:
+            jumps += live
+            carry = jump(carry)
+            for _ in range(HYB_UNROLL):
+                iters += carry[2] != 0
+                carry = exact(carry)
+    return trips, jumps, iters
+
+
+def warp_trips(trips: torch.Tensor):
+    """(mean, largest) over K2's warps of their longest lane's trips: each
+    warp holds 32 consecutive envs of one lane kind."""
+    per_warp = torch.nn.functional.pad(trips, (0, -trips.numel() % 32)).reshape(-1, 32)
+    worst = per_warp.max(dim=1).values.double()
+    return float(worst.mean()), int(worst.max())
+
+
+def mode_work(balls, algo: str):
+    """K2's work in mode ``algo`` on ``balls``: the true ball's and the
+    candidates' warp trips (mean, largest), and the bound's operations."""
+    algo_true, algo_cand = predict.parse_algo(algo)
+    x, y, vx, vy = balls
+    lane = torch.arange(6, dtype=torch.int32, device=x.device)[:, None]
+    cvx, cvy = predict.candidate_velocities(x, vy, lane)
+    shape = cvx.shape
+    true = lane_work(x, y, vx, vy, True, algo_true)
+    cand = lane_work(x.expand(shape).reshape(-1), y.expand(shape).reshape(-1),
+                     cvx.reshape(-1), cvy.reshape(-1), False, algo_cand)
+    ops = sum(int(w[1].sum()) * LEAP_JUMP_OPS + int(w[2].sum()) * LANDING_ITERATION_OPS
+              for w in (true, cand))
+    cand_warps = [warp_trips(t) for t in cand[0].reshape(6, -1)]
+    return (warp_trips(true[0]),
+            (float(np.mean([m for m, _ in cand_warps])), max(w for _, w in cand_warps)), ops)
+
+
+def k2_modes(live, card: str):
+    """Phase 20: K2 in every mode bit-equal to its plain version and to K2
+    iter on random, net-trap, live and corpus states; then, on the live
+    states, each mode's time (stream held, interleaved with iter), the warps'
+    trips and the mode's bound.  Returns {mode: (launches, err, ms, plain_ms,
+    bound)} for the kernels line's leap and hyb entries."""
+    device = live[0].device
+    cases = {"random states": random_ball_states(AI_BATCH, 3, device),
+             "net-trap cases": tuple(torch.tensor(c, device=device)
+                                     for c in NET_TRAP_CASES.T.copy()),
+             f"AI self-play frame {HARVEST_FRAME}": live,
+             "the leap corpus (boxes, band lattice, cap box)": leap_corpus(device)}
+    for name, balls in cases.items():
+        base = predict_cuda.landing_sims_batched(*balls)
+        for algo in K2_ALGOS:
+            for split in K2_SPLITS:
+                got = predict_cuda.landing_sims_batched(*balls, algo=algo, split=split)
+                want_e, want_c = landing_sims_any(*balls, algo=algo, split=split)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], want_e) and torch.equal(got[1], want_c.t())):
+                    raise AssertionError(f"phase 20 K2 {algo}/{split} != its plain version "
+                                         f"on {name}")
+                if not (torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])):
+                    raise AssertionError(f"phase 20 K2 {algo}/{split} != K2 iter on {name}")
+        print(f"phase 20 K2 modes [{name}]: n={balls[0].numel()}, algo {K2_ALGOS} x split "
+              f"{K2_SPLITS} each bit-equal to its plain version and to K2 iter [{card}]")
+    out = {}
+    iter_call = lambda: predict_cuda.landing_sims_batched(*live)
+    iter_call()
+    for algo in K2_ALGOS:
+        call = lambda: predict_cuda.landing_sims_batched(*live, algo=algo)
+        plain = lambda: landing_sims_any(*live, algo=algo)
+        call(), plain()
+        predict_cuda.zero_counts()
+        i1, k1, k2, i2 = (cuda_ms(iter_call, 50, hold=True), cuda_ms(call, 50, hold=True),
+                          cuda_ms(call, 50, hold=True), cuda_ms(iter_call, 50, hold=True))
+        launches = predict_cuda.landing_sims_batched.launches_by_algo[algo]
+        plain_ms = cuda_ms(plain, 2)
+        (tm, tw), (cm, cw), ops = mode_work(live, algo)
+        b = bound(11 * 4 * AI_BATCH, {"int32": ops})
+        out[algo] = (launches, 0, min(k1, k2), plain_ms, b)
+        print(f"phase 20 time K2 {algo} B={AI_BATCH} frame-{HARVEST_FRAME} states: {k1:.4f} / "
+              f"{k2:.4f} ms (stream held), K2 iter {i1:.4f} / {i2:.4f} ms in turns; plain "
+              f"{plain_ms:.3f} ms; warps' trips: true ball mean {tm:.2f} largest {tw}, "
+              f"candidates mean {cm:.2f} largest {cw}; bound {b[0]:.5f} ms by {b[1]} ({ops} "
+              f"operations: jumps x {LEAP_JUMP_OPS} + iterations x {LANDING_ITERATION_OPS}); "
+              f"{launches} launches [{card}]")
+    return out
+
+
+# Phase 21: the meshed trainer at the learner's width, 2 updates.
+MESH_UPDATES = 2
+MESH_ENV = EnvConfig(auto_reset=True)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def first_minibatch_grads(runner, train_step, cfg: PPOConfig):
+    """The first minibatch's gradient of ``runner``'s next update, driven
+    through the trainer's phases (the generator copied, not advanced)."""
+    key = torch.Generator(device=runner.key.device)
+    key.set_state(runner.key.get_state())
+    (_, last_norm), traj = train_step.rollout_fn(runner.params, runner.env_state,
+                                                 runner.last_obs, train_step.uniforms_fn(key))
+    _, last_value = apply_fm(runner.params, last_norm, cfg.activation)
+    adv, targets = ppo.gae_associative(traj.value, traj.reward, traj.done, last_value,
+                                       cfg.gamma, cfg.gae_lambda)
+    t_mb = cfg.rollout_length // cfg.num_minibatches
+    grads, _ = train_step.minibatch_grads_fn(
+        runner.params, ppo.Transition(*[leaf[:t_mb] for leaf in traj]), adv[:t_mb],
+        targets[:t_mb])
+    return grads
+
+
+def sampling_apart(params, train_step, cols: int, card: str):
+    """The premise of bit-identical sampling on a mesh: the policy step gives
+    a column the same action, log-prob and value whether it runs among
+    ``cols`` columns or among half as many (cuBLAS picks a GEMM by shape)."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    obs = (torch.rand((35, cols), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
+    u = torch.rand((1, cols), generator=gen, device="cuda")
+    whole = train_step.policy_sample_fn(params, obs, u)
+    half = cols // 2
+    halves = [train_step.policy_sample_fn(params, obs[:, i:i + half].contiguous(),
+                                          u[:, i:i + half]) for i in (0, half)]
+    apart = [int((w != torch.cat([h[j] for h in halves])).sum()) for j, w in enumerate(whole)]
+    if any(apart):
+        raise AssertionError(f"phase 21: the policy step at {cols} vs {half} columns differs "
+                             f"in {apart} (action, log-prob, value) columns")
+    print(f"phase 21 the policy step at {cols} columns == at {half}, column for column "
+          f"(actions, log-probs, values) [{card}]")
+
+
+def mesh_run(cfg: PPOConfig, mesh, updates: int):
+    """``updates`` updates of the trainer (on ``mesh``, or none) from seed 0:
+    (final runner, metrics of each update, ms an update, the env state after
+    the first update)."""
+    init_fn, train_step, _ = make_ppo_trainer(PikaZoo(MESH_ENV), cfg, mesh=mesh)
+    runner, metrics, ms, first = init_fn(0), [], [], None
+    for _ in range(updates):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner, m = train_step(runner)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(torch.stack([x.float() for x in m[:7]]))
+        first = runner.env_state if first is None else first
+    return runner, torch.stack(metrics), ms, first
+
+
+def meshed_trainer(card: str):
+    """Phase 21: (1) a one-rank nccl group's mesh == the unmeshed trainer,
+    bit for bit; (2) two ranks sharing the card over gloo (the port's
+    multihost_smoke tool, 2 subprocesses) against the one-rank run; (3) the
+    CLI's --distributed with a world of one."""
+    from pikazoo_tpu_torch.parallel import init_distributed, make_env_mesh
+    import torch.distributed as dist
+
+    cfg = LEARNER
+    device = torch.device("cuda", 0)
+    # (1) One rank, nccl.
+    init_distributed(init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"phase 21: init_distributed took {dist.get_backend()}")
+        mesh = make_env_mesh(device)
+        init_fn, plain_step, _ = make_ppo_trainer(PikaZoo(MESH_ENV), cfg)
+        start = init_fn(0)
+        sampling_apart(start.params, plain_step, 2 * cfg.num_envs, card)
+        ref_grads = first_minibatch_grads(start, plain_step, cfg)
+        del start
+        alone, alone_metrics, alone_ms, alone_first = mesh_run(cfg, None, MESH_UPDATES)
+        meshed, meshed_metrics, meshed_ms, _ = mesh_run(cfg, mesh, MESH_UPDATES)
+        diff = runners_differ(alone, meshed)
+        if diff or not torch.equal(alone_metrics, meshed_metrics):
+            raise AssertionError(f"phase 21 one-rank mesh != mesh=None: {diff[:5]}")
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 21 one-rank nccl mesh == mesh=None bit for bit: B={cfg.num_envs}, "
+          f"{MESH_UPDATES} updates, every runner leaf and metric; ms an update "
+          f"{[round(t, 1) for t in alone_ms]} / {[round(t, 1) for t in meshed_ms]} [{card}]")
+
+    # (2) Two ranks on the one card over gloo.
+    out_dir = Path(__file__).resolve().parent / "build" / "phase21"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    argv = ["--num-envs", str(cfg.num_envs), "--rollout-length", str(cfg.rollout_length),
+            "--minibatches", str(cfg.num_minibatches), "--epochs", str(cfg.update_epochs),
+            "--hidden", *map(str, cfg.hidden), "--winning-score",
+            str(MESH_ENV.winning_score), "--updates", str(MESH_UPDATES), "--no-traj"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "pikazoo_tpu_torch.tools.multihost_smoke",
+                               str(r), "2", str(port), "cuda:0", "fm", "-",
+                               str(out_dir / "out.npz"), *argv],
+                              cwd=Path(__file__).resolve().parent, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        print(f"phase 21 rank {r}: {log.strip().splitlines()[-1] if log.strip() else ''}")
+        if p.returncode != 0:
+            raise AssertionError(f"phase 21 rank {r} failed ({p.returncode}):\n{log[-4000:]}")
+    ranks = [dict(np.load(out_dir / f"out.rank{r}.npz")) for r in range(2)]
+    for k in ranks[0]:
+        if k.startswith(("params.", "metrics", "env.", "last_obs", "grad.")) and \
+                not np.array_equal(ranks[0][k], ranks[1][k]):
+            raise AssertionError(f"phase 21: the two ranks differ in {k}")
+    got = ranks[0]
+    # The first update samples with the same params on both worlds: its env
+    # state is bit-equal.  Later updates sample with params that differ by
+    # the grads' summation order, so near-tie columns may draw other actions.
+    for name, leaf in named_tensors(alone_first, "env."):
+        if not np.array_equal(got[f"first.{name}"], leaf.cpu().numpy()):
+            raise AssertionError(f"phase 21: the gathered {name} after update 1 != the "
+                                 "one-rank run's")
+    _, rel_l2, min_cos = BF16_TOL
+    worst_rel, worst_cos = 0.0, 1.0
+    for k, w in ref_grads.items():
+        g = torch.from_numpy(got[f"grad.{k}"]).double().flatten()
+        w = w.double().cpu().flatten()
+        rel = float((g - w).norm() / w.norm())
+        cos = float(g @ w / (g.norm() * w.norm()))
+        if not (rel <= rel_l2 and cos >= min_cos):
+            raise AssertionError(f"phase 21 first summed gradient: {k} relative L2 {rel:.3e}, "
+                                 f"cos {cos:.8f} from the one-rank run's")
+        worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+    steps = MESH_UPDATES * cfg.update_epochs * cfg.num_minibatches
+    atol = 2 * cfg.learning_rate * steps + 1e-5
+    worst_param = max(float(np.abs(got[f"params.{k}"] - v.cpu().numpy()).max())
+                      for k, v in alone.params.items())
+    if worst_param > atol:
+        raise AssertionError(f"phase 21: params {worst_param:.3e} from the one-rank run's "
+                             f"(bound {atol:.3e})")
+    want_reduce = steps * 3 + MESH_UPDATES
+    for r, rank in enumerate(ranks):
+        counts = (int(rank["k1_launches"]), int(rank["rollout_collectives"]),
+                  int(rank["all_reduce_calls"]), int(rank["update_collectives"]))
+        if counts != (steps, 0, want_reduce, want_reduce):
+            raise AssertionError(f"phase 21 rank {r}: K1 launches, rollout collectives, "
+                                 f"all_reduce calls, update collectives {counts}; want "
+                                 f"({steps}, 0, {want_reduce}, {want_reduce})")
+    ms = [rank["update_ms"].tolist() for rank in ranks]
+    print(f"phase 21 two ranks on one card over gloo (B={cfg.num_envs} global, "
+          f"{cfg.num_envs // 2} a rank, {MESH_UPDATES} updates, {seconds:.1f} s with start-up): "
+          f"losses, params, grads and gathered runner bit-identical across ranks; gathered "
+          f"env state after update 1 == the one-rank run's; first summed gradient vs the one-rank run's: "
+          f"worst leaf relative L2 {worst_rel:.3e} cos {worst_cos:.8f}; params within "
+          f"{worst_param:.3e} (bound {atol:.3e}); each rank {steps} K1 bf16 launches, 0 "
+          f"rollout collectives, {want_reduce} all_reduce calls ({steps} x (grads + 2 "
+          f"advantage statistics) + {MESH_UPDATES} metrics); ms an update per rank "
+          f"{[[round(t, 1) for t in m] for m in ms]}, one rank alone "
+          f"{[round(t, 1) for t in alone_ms]} [{card}]")
+    del alone, meshed
+
+    # (3) The CLI, --distributed, a world of one from the torchrun variables.
+    saved = {k: os.environ.get(k) for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE",
+                                            "MASTER_ADDR", "MASTER_PORT")}
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(free_port()))
+    try:
+        runner = train_run.main(["--distributed", "--num-envs", "8192", "--rollout-length",
+                                 "16", "--updates", "1"])
+        world, backend = dist.get_world_size(), dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if (world, backend, runner.update_index) != (1, "nccl", 1):
+        raise AssertionError(f"phase 21 CLI --distributed: world {world}, backend {backend}, "
+                             f"update {runner.update_index}")
+    print(f"phase 21 CLI --distributed: a world of {world} over {backend}, 1 update on "
+          f"{runner.params['layers.0.kernel'].device} [{card}]")
+    return float(np.mean(ms))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
@@ -1987,11 +2339,23 @@ def main() -> int:
     pettingzoo_drop_in(card)
     oracle_card_vs_cpu(card)
 
+    # Phase 20: K2's landing-loop algorithms (leap, hyb, the mixes, the ydir
+    # split) against their plain versions and K2 iter, timed beside iter.
+    k2_mode_stats = k2_modes(live, card)
+
+    # Phase 21: the meshed trainer: a one-rank nccl mesh, two ranks sharing
+    # the card over gloo, and the CLI's --distributed.
+    meshed_trainer(card)
+
     ms, plain_ms, k2_bound = timed[f"AI self-play frame {HARVEST_FRAME}"]
     rows = K1_FULL[0] * K1_FULL[1]
     entries = [
         ("landing_sims_batched", "landing.cu", "pikazoo_tpu/core/predict_pallas.py:72",
          launches, err, ms, plain_ms, k2_bound),
+        # K2's leap and hybrid modes: launches in phase 20's timed runs.
+        *[(f"landing_sims_batched[{algo}]", "landing.cu",
+           "pikazoo_tpu/core/predict_pallas.py:72", *k2_mode_stats[algo])
+          for algo in ("leap", "hyb")],
         ("fused_rollout", "fused_step.cu", "pikazoo_tpu/core/fused_step.py:200",
          fused_launches, fused_err, fused_ms, fused_plain_ms, fused_bound),
         ("fused_ppo_grads_fm", "fused_update_bf16.cu", "pikazoo_tpu/train/fused_update.py:504",

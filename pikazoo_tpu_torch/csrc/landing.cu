@@ -26,52 +26,158 @@
 //   * The whole state stays in registers; each thread exits its own loop.
 //   * vx == 0 is the finished encoding, as in the plain version: a lane that
 //     starts with vx == 0 (the net-top trap) returns its x at once.
-// Faster loops (lane compaction, the closed-form "leap" loop, which integer
-// multiply and divide make cheap here) are later work.
+//
+// Modes: the kernel is templated on the true ball's loop and the
+// candidates' (landing_sim.cuh's LandingAlgo): the frame loop (iter, the
+// default and the env's), the event-leaping loop (leap: a closed-form jump
+// over a span proven free of events, then one exact iteration), or the
+// hybrid (hyb: a jump, then `unroll` exact iterations).  The leap cuts a
+// warp's longest trajectory from its frames to its events; each trip costs
+// more arithmetic, in int32 here, with the integer multiply and divide the
+// TPU's vector unit lacks (the JAX package's leap carried integer-valued
+// float32 for that reason).  All modes give the frame loop's results bit
+// for bit.  The JAX package's split="ydir" (three 2-lane candidate loops
+// grouped by launch y-direction, so fast lanes stop paying for slow ones)
+// is this same launch: the threads are lane-major, so every warp already
+// holds envs of one candidate kind and every candidate runs its own loop,
+// the finest grouping there is.
 
 #include <cstdint>
-#include <cuda_runtime.h>
 
 #include "landing_sim.cuh"
 
 namespace {
 
 using pika::candidate_landing;
-using pika::sim;
+using pika::kHyb;
+using pika::kIter;
+using pika::kLeap;
+using pika::sim_any;
 
+// The default unroll of each loop, as the JAX kernel takes them
+// (predict_pallas.py:58): leaps a trip, or exact iterations after a jump.
+int32_t resolve_unroll(int32_t algo, int32_t unroll) {
+  if (unroll > 0) return unroll;
+  return algo == kHyb ? 32 : 1;
+}
+
+}  // namespace
+
+#if defined(__CUDACC__)
+
+#include <cuda_runtime.h>
+
+namespace {
+
+template <int ALGO_TRUE, int ALGO_CAND>
 __global__ void landing_kernel(const int32_t* __restrict__ xs,
                                const int32_t* __restrict__ ys,
                                const int32_t* __restrict__ vxs,
                                const int32_t* __restrict__ vys,
                                int32_t* __restrict__ expected,
-                               int32_t* __restrict__ cand, int32_t n) {
+                               int32_t* __restrict__ cand, int32_t n,
+                               int32_t unroll_true, int32_t unroll_cand) {
   const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= 7 * int64_t(n)) return;
   const int32_t lane = int32_t(t / n);
   const int32_t e = int32_t(t - int64_t(lane) * n);
   const int32_t x = xs[e], y = ys[e];
   if (lane == 0) {
-    expected[e] = sim(x, y, vxs[e], vys[e], true);
+    expected[e] = sim_any<ALGO_TRUE>(x, y, vxs[e], vys[e], true, unroll_true);
     return;
   }
   const int32_t k = lane - 1;
-  cand[int64_t(k) * n + e] = candidate_landing(k, x, y, vys[e]);
+  cand[int64_t(k) * n + e] =
+      candidate_landing<ALGO_CAND>(k, x, y, vys[e], unroll_cand);
+}
+
+template <int ALGO_TRUE>
+using Kernel = void (*)(const int32_t*, const int32_t*, const int32_t*,
+                        const int32_t*, int32_t*, int32_t*, int32_t, int32_t,
+                        int32_t);
+
+template <int ALGO_TRUE>
+Kernel<ALGO_TRUE> pick(int32_t algo_cand) {
+  switch (algo_cand) {
+    case kLeap: return landing_kernel<ALGO_TRUE, kLeap>;
+    case kHyb: return landing_kernel<ALGO_TRUE, kHyb>;
+    default: return landing_kernel<ALGO_TRUE, kIter>;
+  }
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError(); never synchronises.
+// algo_true / algo_cand: 0 iter, 1 leap, 2 hyb (anything else is refused
+// with cudaErrorInvalidValue); unroll 0 takes each loop's default.
 extern "C" int landing_sims_launch(const void* x, const void* y,
                                    const void* vx, const void* vy,
                                    void* expected, void* cand, int32_t n,
-                                   void* stream) {
+                                   int32_t algo_true, int32_t algo_cand,
+                                   int32_t unroll, void* stream) {
+  if (algo_true < kIter || algo_true > kHyb || algo_cand < kIter ||
+      algo_cand > kHyb || unroll < 0) {
+    return int(cudaErrorInvalidValue);
+  }
   if (n <= 0) return int(cudaSuccess);
   constexpr int kThreads = 256;
   const int64_t total = 7 * int64_t(n);
   const unsigned blocks = unsigned((total + kThreads - 1) / kThreads);
-  landing_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), static_cast<const int32_t*>(y),
-      static_cast<const int32_t*>(vx), static_cast<const int32_t*>(vy),
-      static_cast<int32_t*>(expected), static_cast<int32_t*>(cand), n);
+  const auto args = [&](auto kernel) {
+    kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(x), static_cast<const int32_t*>(y),
+        static_cast<const int32_t*>(vx), static_cast<const int32_t*>(vy),
+        static_cast<int32_t*>(expected), static_cast<int32_t*>(cand), n,
+        resolve_unroll(algo_true, unroll), resolve_unroll(algo_cand, unroll));
+  };
+  switch (algo_true) {
+    case kLeap: args(pick<kLeap>(algo_cand)); break;
+    case kHyb: args(pick<kHyb>(algo_cand)); break;
+    default: args(pick<kIter>(algo_cand)); break;
+  }
   return int(cudaGetLastError());
 }
+
+#else  // !__CUDACC__
+
+namespace {
+
+int32_t host_sim_algo(int32_t algo, int32_t x, int32_t y, int32_t vx,
+                      int32_t vy, bool full_rule, int32_t unroll) {
+  switch (algo) {
+    case kLeap: return sim_any<kLeap>(x, y, vx, vy, full_rule, unroll);
+    case kHyb: return sim_any<kHyb>(x, y, vx, vy, full_rule, unroll);
+    default: return sim_any<kIter>(x, y, vx, vy, full_rule, unroll);
+  }
+}
+
+}  // namespace
+
+// The host build's counterpart of the kernel, for the CPU tests: the same
+// device code (landing_sim.cuh) over the envs in a host loop, the same
+// arguments and output layout.  Returns 0, or 1 for a refused argument.
+extern "C" int landing_sims_host(const int32_t* x, const int32_t* y,
+                                 const int32_t* vx, const int32_t* vy,
+                                 int32_t n, int32_t algo_true,
+                                 int32_t algo_cand, int32_t unroll,
+                                 int32_t* expected, int32_t* cand) {
+  if (algo_true < kIter || algo_true > kHyb || algo_cand < kIter ||
+      algo_cand > kHyb || unroll < 0) {
+    return 1;
+  }
+  const int32_t u_true = resolve_unroll(algo_true, unroll);
+  const int32_t u_cand = resolve_unroll(algo_cand, unroll);
+  for (int32_t e = 0; e < n; ++e) {
+    expected[e] = host_sim_algo(algo_true, x[e], y[e], vx[e], vy[e], true,
+                                u_true);
+    for (int32_t k = 0; k < 6; ++k) {
+      int32_t cvx, cvy;
+      pika::candidate_velocity(k, x[e], vy[e], cvx, cvy);
+      cand[int64_t(k) * n + e] =
+          host_sim_algo(algo_cand, x[e], y[e], cvx, cvy, false, u_cand);
+    }
+  }
+  return 0;
+}
+
+#endif  // __CUDACC__

@@ -14,6 +14,13 @@ The swap is crash-safe as the JAX package's is.  ``save`` writes
 ``path.new`` to ``path`` and drops ``.old``: at every instant a complete
 checkpoint is at ``path``, ``path.new`` or ``path.old``.  A ``.new`` left by
 a crash inside that window is the newest and is promoted, never deleted.
+
+On a mesh (``parallel.EnvMesh``) the file still holds the global runner, so
+it restores on any world, as the JAX package's ``restore(like)`` does across
+topologies: ``save`` gathers the env shards (the batch fields,
+:data:`BATCH_FIELDS`) and rank 0 writes; ``restore`` loads on every rank and
+keeps the rank's rows.  A checkpoint written by two ranks resumes on one,
+and one written by one rank resumes on two.
 """
 
 from __future__ import annotations
@@ -23,7 +30,11 @@ from typing import Any
 
 import torch
 
+from pikazoo_tpu_torch.parallel.mesh import barrier, gather_batch, shard_batch
+
 _GENERATOR = "__generator_state__"
+# The runner's fields whose leaves lead with the env batch: sharded on a mesh.
+BATCH_FIELDS = ("env_state", "last_obs")
 
 
 def _encode(tree: Any) -> Any:
@@ -83,10 +94,23 @@ def _recover_swap(path: str) -> None:
     _fsync_dir(path)
 
 
-def save(path: str, state: Any) -> None:
+def save(path: str, state: Any, mesh=None) -> None:
     """Write ``state`` (a ``PPORunnerState``) to ``path``, crash-safe (see
     the module docstring).  A complete stale ``path.new`` is promoted first,
-    never deleted."""
+    never deleted.  On a mesh every rank calls it: the batch fields are
+    gathered, rank 0 writes, and every rank returns once the file is in
+    place."""
+    if mesh is not None and mesh.distributed:
+        state = state._replace(**{f: gather_batch(getattr(state, f), mesh)
+                                  for f in BATCH_FIELDS})
+        if mesh.rank == 0:
+            _write(path, state)
+        barrier(mesh)
+        return
+    _write(path, state)
+
+
+def _write(path: str, state: Any) -> None:
     path = os.path.abspath(path)
     tmp, old = path + ".new", path + ".old"
     _recover_swap(path)
@@ -120,10 +144,13 @@ def latest_restorable(path: str) -> str | None:
     return None
 
 
-def restore(path: str, like: Any) -> Any:
+def restore(path: str, like: Any, mesh=None) -> Any:
     """The checkpoint at ``path`` in the structure of ``like`` (e.g.
     ``init_fn(seed)``'s runner), every tensor on the device of ``like``'s
     leaf: a run saved on the card resumes on the card, one saved on the CPU
-    on the CPU, whichever wrote it."""
+    on the CPU, whichever wrote it.  On a mesh each rank keeps its rows of
+    the batch fields (``like`` holds this rank's)."""
     data = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
+    if mesh is not None and mesh.distributed:
+        data = dict(data, **{f: shard_batch(data[f], mesh) for f in BATCH_FIELDS})
     return _decode(like, data, "state")

@@ -18,8 +18,18 @@ computes it.  On a CUDA device float32 products run in full float32
 sampling relies on; bf16 products are the network's own.
 
 Entry points run on the card unless the caller asks for the CPU
-(``make_ppo_trainer(..., device="cpu")``).  Not ported yet (it raises): the
-device mesh.
+(``make_ppo_trainer(..., device="cpu")``).
+
+On a mesh (``parallel.make_env_mesh`` over a process group of n ranks) the
+step follows the JAX trainer under ``shard_map``: each rank steps its
+``b = num_envs / n`` envs, draws the global uniforms from the replicated
+generator and samples with its own columns of them (bit-identical to one
+rank), and rolls out with no collective; every minibatch takes its
+advantage statistics from two sums over ranks and its gradient from K1 (or
+K4, or autograd) over the local columns with the global row count, the
+grads and the five loss terms summed over ranks in one ``all_reduce``; Adam
+then runs alike on every rank.  The one-rank mesh is ``mesh=None``, bit for
+bit.
 """
 
 from __future__ import annotations
@@ -31,8 +41,9 @@ import torch
 
 from pikazoo_tpu_torch.envs.observations import assemble_obs
 from pikazoo_tpu_torch.envs.pika_volley import EnvState, PikaZoo
-from pikazoo_tpu_torch.train.fused_update import (check_mode, fused_ppo_grads,
-                                                  fused_ppo_grads_fm)
+from pikazoo_tpu_torch.parallel.mesh import EnvMesh, all_reduce_sum, local_rows, shard_batch
+from pikazoo_tpu_torch.train.fused_update import (check_int8_cells, check_mode,
+                                                  fused_ppo_grads, fused_ppo_grads_fm)
 from pikazoo_tpu_torch.train.networks import (BF16, ActorCritic, Params, apply,
                                               apply_fm, normalize_obs)
 
@@ -101,8 +112,8 @@ class AdamState(NamedTuple):
 class PPORunnerState(NamedTuple):
     params: Params
     opt_state: AdamState
-    env_state: EnvState
-    last_obs: torch.Tensor  # (B, 2, 35) int32
+    env_state: EnvState     # on a mesh, this rank's b envs
+    last_obs: torch.Tensor  # (B, 2, 35) int32; on a mesh (b, 2, 35)
     key: torch.Generator    # draws the rollout's uniforms, on the device
     update_index: int
 
@@ -184,7 +195,7 @@ def make_optimizer(cfg: PPOConfig):
 
 
 def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
-                     mesh=None):
+                     mesh: Optional[EnvMesh] = None):
     """Build ``(init_fn, train_step, network)``.
 
     ``env`` is a :class:`PikaZoo` or a stack of the wrappers that transform
@@ -198,12 +209,25 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
     ``policy_sample_fn(params, norm_obs_fm, u)``,
     ``minibatch_grads_fn(params, mtraj, madv, mtarget)``,
     ``update_fn(params, opt_state, traj, advantages, targets)``, ``tx``
-    (the optimizer's ``(init, update)``), ``shuffle_fn(batch, generator)``
-    and ``provenance``."""
+    (the optimizer's ``(init, update)``), ``shuffle_fn(batch, generator)``,
+    ``uniforms_fn(generator)`` (this rank's (T, 1, 2b) columns of the
+    update's uniforms), ``local_columns_fn(rows)`` (this rank's columns of
+    global (T, 1, 2B) rows) and ``provenance``.
+
+    ``mesh`` (an :class:`EnvMesh`) runs the step data-parallel (module
+    docstring): ``cfg.num_envs`` is global, each rank holds ``num_envs /
+    world_size`` envs on the mesh's device, and a ``device`` of another type
+    raises."""
     device = torch.device(device)
     if mesh is not None:
-        raise NotImplementedError("the device mesh is not ported yet "
-                                  "(ROADMAP Queue 1 item 2)")
+        if mesh.device.type != device.type:
+            raise ValueError(f"the mesh's tensors lie on {mesh.device}, not {device}")
+        device = mesh.device
+        if cfg.num_envs % mesh.world_size:
+            raise ValueError(f"num_envs={cfg.num_envs} does not split over the mesh's "
+                             f"{mesh.world_size} ranks")
+    meshed = mesh is not None and mesh.distributed
+    world = mesh.world_size if mesh is not None else 1
     if cfg.fused_update not in ("auto", "fm", "on", "off"):
         raise ValueError(f"unknown fused_update {cfg.fused_update!r}")
     if cfg.learner_seats not in ("both", "p1"):
@@ -235,25 +259,33 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
             f"{cfg.update_bwd_bf16} require the feature-major fused kernel, but "
             f"fused_update={cfg.fused_update!r} resolved to {resolved!r} on "
             f"{device.type}; set fused_update='fm'")
+    B = cfg.num_envs
+    b = B // world                  # this rank's envs
     if resolved == "fm":
         check_mode(cfg.update_quant, cfg.activation, len(cfg.hidden))
+        if cfg.update_quant == "int8":
+            # K1's columns on this rank: both seats, or seat 1's.
+            check_int8_cells(2 * b if cfg.learner_seats == "both" else b)
     network = ActorCritic(cfg.num_actions, cfg.hidden, cfg.activation,
                           device=device)
     tx_init, tx_update = make_optimizer(cfg)
-    B = cfg.num_envs
 
     # ---------------------------------------------------------------- init --
     def init_fn(seed: int) -> PPORunnerState:
         """Params from a CPU generator seeded with ``seed`` (the same on any
         device), envs from ``reset_batch(seed)``, and the rollout's generator
-        on the device, seeded with ``seed``."""
+        on the device, seeded with ``seed``.  On a mesh every rank builds the
+        global runner and keeps its rows, so any world starts alike."""
         init_gen = torch.Generator().manual_seed(seed)
         net = ActorCritic(cfg.num_actions, cfg.hidden, cfg.activation,
                           generator=init_gen)
         params = {k: v.detach().to(device) for k, v in net.params().items()}
         env_state, ts = env.reset_batch(seed, B, device=device)
         key = torch.Generator(device=device).manual_seed(seed)
-        return PPORunnerState(params, tx_init(params), env_state, ts.obs, key, 0)
+        obs = ts.obs
+        if meshed:
+            env_state, obs = shard_batch((env_state, obs), mesh)
+        return PPORunnerState(params, tx_init(params), env_state, obs, key, 0)
 
     # ------------------------------------------------------------- rollout --
     @torch.no_grad()
@@ -304,29 +336,71 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
             norm = next_norm
         return (env_state, norm), traj
 
+    def local_columns(u: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of global (T, 1, 2B) rows: ``[i*b, (i+1)*b)``
+        of each seat block (all of them off a mesh)."""
+        if not meshed:
+            return u
+        rows = local_rows(B, mesh)
+        return torch.cat([u[..., rows], u[..., B + rows.start:B + rows.stop]], dim=-1)
+
+    def draw_uniforms(generator: torch.Generator) -> torch.Tensor:
+        """This rank's columns of the update's (T, 1, 2B) uniform rows, drawn
+        whole from ``generator`` on every rank."""
+        return local_columns(torch.rand((cfg.rollout_length, 1, 2 * B), generator=generator,
+                                        device=device))
+
+    # ----------------------------------------------------------- collectives --
+    def adv_stats(madv: torch.Tensor):
+        """The global mean and population std of the minibatch's advantages,
+        from the sum and then the sum of squared deviations over ranks."""
+        count = madv.numel() * world
+        mean = all_reduce_sum(madv.sum().reshape(1), mesh)[0] / count
+        var = all_reduce_sum(((madv - mean) ** 2).sum().reshape(1), mesh)[0] / count
+        return mean, torch.sqrt(var)
+
+    def sum_over_ranks(grads: Dict[str, torch.Tensor], losses: torch.Tensor):
+        """Grads and the five loss terms summed over ranks in one flat
+        ``all_reduce``."""
+        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads.values()]
+                                        + [losses]), mesh)
+        out, start = {}, 0
+        for k, g in grads.items():
+            out[k] = flat[start:start + g.numel()].reshape(g.shape)
+            start += g.numel()
+        return out, flat[start:]
+
     # ---------------------------------------------------------------- loss --
     def loss_fn(params: Params, batch: Transition, advantages: torch.Tensor,
-                targets: torch.Tensor):
+                targets: torch.Tensor, stats=None, total_rows: int = 0):
         """The clipped-PPO loss of the JAX ``loss_fn``, differentiable:
-        ``(total, (policy, value, entropy, approx_kl))``."""
+        ``(total, (policy, value, entropy, approx_kl))``.  On a mesh,
+        ``stats`` are the global advantage mean and std and each mean is
+        this rank's sum over ``total_rows``, the global count: the ranks'
+        losses (and grads) then sum to the global ones."""
         logits, value = apply(params, batch.obs.transpose(-2, -1), cfg.activation,
                               pre_normalized=True)
         log_probs = torch.log_softmax(logits, dim=-1)
         one_hot = torch.nn.functional.one_hot(batch.action.long(), cfg.num_actions)
         log_prob = (log_probs * one_hot.to(log_probs.dtype)).sum(-1)
         ratio = torch.exp(log_prob - batch.log_prob)
-        # Population std (ddof 0), as jnp.std.
-        adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+        if stats is None:
+            # Population std (ddof 0), as jnp.std.
+            adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+            mean = torch.mean
+        else:
+            adv = (advantages - stats[0]) / (stats[1] + 1e-8)
+            mean = lambda v: v.sum() / total_rows
         unclipped = ratio * adv
         clipped = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv
-        policy_loss = -torch.minimum(unclipped, clipped).mean()
+        policy_loss = -mean(torch.minimum(unclipped, clipped))
         value_clipped = batch.value + torch.clamp(value - batch.value,
                                                   -cfg.clip_eps, cfg.clip_eps)
-        value_loss = 0.5 * torch.maximum((value - targets) ** 2,
-                                         (value_clipped - targets) ** 2).mean()
-        entropy = -(torch.exp(log_probs) * log_probs).sum(-1).mean()
+        value_loss = 0.5 * mean(torch.maximum((value - targets) ** 2,
+                                              (value_clipped - targets) ** 2))
+        entropy = -mean((torch.exp(log_probs) * log_probs).sum(-1))
         total = policy_loss + cfg.value_coef * value_loss - cfg.entropy_coef * entropy
-        approx_kl = ((ratio - 1) - torch.log(ratio)).mean()
+        approx_kl = mean((ratio - 1) - torch.log(ratio))
         return total, (policy_loss, value_loss, entropy, approx_kl)
 
     # ------------------------------------------------------ update dispatch --
@@ -334,27 +408,37 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
                         mtarget: torch.Tensor):
         """The minibatch gradient train_step runs: K1 (its plain version on
         the CPU), K4 on the minibatch flattened to rows, or autograd of
-        ``loss_fn``.  Returns ``(grads, losses[5])``."""
+        ``loss_fn``.  Returns ``(grads, losses[5])``; on a mesh, this rank's
+        columns of the minibatch in, the global grads and losses out, alike
+        on every rank."""
+        stats = adv_stats(madv) if meshed else None
+        total_rows = madv.numel() * world if meshed else 0
         if resolved != "autograd":
-            adv_n = (madv - madv.mean()) / (madv.std(correction=0) + 1e-8)
+            if meshed:
+                adv_n = (madv - stats[0]) / (stats[1] + 1e-8)
+            else:
+                adv_n = (madv - madv.mean()) / (madv.std(correction=0) + 1e-8)
             kw = dict(num_actions=cfg.num_actions, activation=cfg.activation,
                       clip_eps=cfg.clip_eps, value_coef=cfg.value_coef,
-                      entropy_coef=cfg.entropy_coef)
+                      entropy_coef=cfg.entropy_coef, total_rows=total_rows)
             data = (mtraj.action, mtraj.log_prob, mtraj.value, adv_n, mtarget)
             if resolved == "fm":
-                return fused_ppo_grads_fm(params, mtraj.obs, *data,
-                                          quant=cfg.update_quant,
-                                          bwd_bf16=cfg.update_bwd_bf16, **kw)
-            # (T_mb, F, 2B) -> (T_mb * 2B, F) rows and (T_mb, 2B) -> (T_mb * 2B,),
-            # as the JAX trainer's rm_flat.
-            obs = mtraj.obs.transpose(1, 2).reshape(-1, mtraj.obs.shape[1])
-            return fused_ppo_grads(params, obs, *[x.reshape(-1) for x in data], **kw)
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        with torch.enable_grad():
-            total, aux = loss_fn(leaves, mtraj, madv, mtarget)
-            grads = torch.autograd.grad(total, list(leaves.values()))
-        losses = torch.stack([total, *aux]).detach()
-        return dict(zip(leaves, grads)), losses
+                grads, losses = fused_ppo_grads_fm(params, mtraj.obs, *data,
+                                                   quant=cfg.update_quant,
+                                                   bwd_bf16=cfg.update_bwd_bf16, **kw)
+            else:
+                # (T_mb, F, 2B) -> (T_mb * 2B, F) rows and (T_mb, 2B) ->
+                # (T_mb * 2B,), as the JAX trainer's rm_flat.
+                obs = mtraj.obs.transpose(1, 2).reshape(-1, mtraj.obs.shape[1])
+                grads, losses = fused_ppo_grads(params, obs, *[x.reshape(-1) for x in data],
+                                                **kw)
+        else:
+            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            with torch.enable_grad():
+                total, aux = loss_fn(leaves, mtraj, madv, mtarget, stats, total_rows)
+                grads = dict(zip(leaves, torch.autograd.grad(total, list(leaves.values()))))
+            losses = torch.stack([total, *aux]).detach()
+        return sum_over_ranks(grads, losses) if meshed else (grads, losses)
 
     @torch.no_grad()
     def update(params: Params, opt_state: AdamState, traj: Transition,
@@ -386,9 +470,14 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
 
     # ---------------------------------------------------------- train step --
     @torch.no_grad()
-    def train_step(runner: PPORunnerState) -> Tuple[PPORunnerState, TrainMetrics]:
-        uniforms = torch.rand((cfg.rollout_length, 1, 2 * B), generator=runner.key,
-                              device=device)
+    def train_step(runner: PPORunnerState, uniforms: Optional[torch.Tensor] = None
+                   ) -> Tuple[PPORunnerState, TrainMetrics]:
+        """One update.  ``uniforms``, if given, are the update's global
+        (T, 1, 2B) rows to sample with in place of the generator's draws
+        (another framework's, in a cross-check); the generator is then not
+        advanced by them."""
+        uniforms = (draw_uniforms(runner.key) if uniforms is None
+                    else local_columns(uniforms.to(device)))
         (env_state, last_norm), traj = rollout(runner.params, runner.env_state,
                                                runner.last_obs, uniforms)
         last_obs = assemble_obs(env_state.p1, env_state.p2, env_state.ball,
@@ -397,20 +486,25 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
         advantages, targets = gae_associative(traj.value, traj.reward, traj.done,
                                               last_value, cfg.gamma, cfg.gae_lambda)
         if cfg.learner_seats == "p1":
-            # Seat 1 is the first half of the (last) env axis of every leaf.
-            traj = Transition(*[leaf[..., :B] for leaf in traj])
-            advantages, targets = advantages[..., :B], targets[..., :B]
+            # Seat 1 is the first half of the (last) env axis of every leaf
+            # (of this rank's columns, on a mesh).
+            traj = Transition(*[leaf[..., :b] for leaf in traj])
+            advantages, targets = advantages[..., :b], targets[..., :b]
         if cfg.shuffle_minibatches:
             traj, advantages, targets = shuffle((traj, advantages, targets), runner.key)
         params, opt_state, losses = update(runner.params, runner.opt_state, traj,
                                            advantages, targets)
         total, policy_loss, value_loss, entropy, approx_kl = losses.mean(dim=(0, 1))
+        if meshed:
+            sums = all_reduce_sum(torch.stack([traj.reward.sum(), traj.done.sum()]), mesh)
+            mean_reward, done_sum = sums[0] / (traj.reward.numel() * world), sums[1]
+        else:
+            mean_reward, done_sum = traj.reward.mean(), traj.done.sum()
         metrics = TrainMetrics(
             total_loss=total, policy_loss=policy_loss, value_loss=value_loss,
-            entropy=entropy, approx_kl=approx_kl,
-            mean_reward=traj.reward.mean(),
+            entropy=entropy, approx_kl=approx_kl, mean_reward=mean_reward,
             # done is stored once per (env, seat); episodes are per env.
-            episodes_finished=traj.done.sum() / (2 if cfg.learner_seats == "both" else 1),
+            episodes_finished=done_sum / (2 if cfg.learner_seats == "both" else 1),
             env_steps=cfg.rollout_length * B)
         runner = PPORunnerState(params, opt_state, env_state, last_obs, runner.key,
                                 runner.update_index + 1)
@@ -422,6 +516,8 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
     train_step.update_fn = update
     train_step.tx = (tx_init, tx_update)
     train_step.shuffle_fn = shuffle
+    train_step.uniforms_fn = draw_uniforms
+    train_step.local_columns_fn = local_columns
     train_step.provenance = {
         "fused_update": resolved,
         "configured": cfg.fused_update,
@@ -429,5 +525,6 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
         "update_bwd_bf16": cfg.update_bwd_bf16,
         "shuffle_minibatches": cfg.shuffle_minibatches,
         "backend": device.type,
+        "world_size": world,
     }
     return init_fn, train_step, network

@@ -75,6 +75,7 @@ def test_port_imports_no_jax():
             "pikazoo_tpu_torch.pikazoo_v0, pikazoo_tpu_torch.compat, "
             "pikazoo_tpu_torch.compat.wrappers, pikazoo_tpu_torch.render, "
             "pikazoo_tpu_torch.native, pikazoo_tpu_torch.parity, pikazoo_tpu_torch.version, "
+            "pikazoo_tpu_torch.parallel, pikazoo_tpu_torch.tools.multihost_smoke, "
             "chip_smoke; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'pikazoo_tpu', 'gymnasium', "

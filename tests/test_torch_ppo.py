@@ -234,8 +234,17 @@ def test_shuffle_applies_one_permutation_from_the_runner_generator():
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_ppo_trainer(PikaZoo(), PPOConfig(), device="cpu", mesh=object())
+    """A mesh whose world does not divide num_envs, or whose tensors lie on
+    another device type, raises (the meshed trainer itself is held in
+    tests/test_torch_parallel.py)."""
+    from pikazoo_tpu_torch.parallel import EnvMesh
+
+    with pytest.raises(ValueError, match="mesh"):
+        make_ppo_trainer(PikaZoo(), PPOConfig(num_envs=6), device="cpu",
+                         mesh=EnvMesh(0, 4, torch.device("cpu")))
+    with pytest.raises(ValueError, match="mesh"):
+        make_ppo_trainer(PikaZoo(), PPOConfig(), device="cpu",
+                         mesh=EnvMesh(0, 1, torch.device("cuda")))
 
 
 def test_cli_writes_metrics(tmp_path, capsys):
