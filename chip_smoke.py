@@ -58,7 +58,8 @@ from pikazoo_tpu_torch.core.predict import landing_sims_any
 from pikazoo_tpu_torch.envs import OBS_HIGH, OBS_LOW
 from pikazoo_tpu_torch.envs.pika_volley import EnvState, batch_keys
 from pikazoo_tpu_torch.policies import load_policy, policy_path
-from pikazoo_tpu_torch.tools import compaction_probe, fm_kernel_probe, fm_roofline, k3_probe
+from pikazoo_tpu_torch.tools import (compaction_probe, fm_kernel_probe, fm_roofline,
+                                     k2_leap_probe, k3_probe)
 from pikazoo_tpu_torch.tools._timing import HOLD_CYCLES
 from pikazoo_tpu_torch.tools.k1_precision_probe import float64_plain
 from pikazoo_tpu_torch.train import PPOConfig, make_ppo_trainer, ppo
@@ -266,7 +267,7 @@ def zero_counts():
 
 
 # The sources whose kernels' registers, stack and spills phase 2 prints.
-PTXAS_SOURCES = ("fm_roofline.cu", "fm_kernel_probe.cu")
+PTXAS_SOURCES = ("landing.cu", "fm_roofline.cu", "fm_kernel_probe.cu")
 
 
 def build_all(card: str):
@@ -1691,13 +1692,14 @@ def oracle_card_vs_cpu(card: str):
 # loop, the two mixes, each with one candidate loop and with the ydir split.
 K2_ALGOS = ("iter", "leap", "hyb", "leap,iter", "iter,leap")
 K2_SPLITS = ("none", "ydir")
-# Integer operations of one leap jump on the card's common path (a lane
-# outside the net band), counted from csrc/landing_sim.cuh: leap_span's wall
-# span (compares, selects, subtractions, one division), band-entry span (one
-# division), ground/ceiling distance and its k_disp (the float seed:
+# Integer operations of one leap jump on the common path (a lane outside the
+# net band), counted from the plain version (core/predict.py::make_leap_step)
+# and kept as the bound's measure of the leap's work: the wall span
+# (compares, selects, subtractions, one division), the band-entry span (one
+# division), the ground/ceiling distance and its k_disp (the float seed:
 # conversions, a product, sqrt, each one operation; the two integer checks
-# of the displacement, four each), the cap and the three minima, then
-# leap_jump's four updates.  A lane in the band runs two k_disp more.
+# of the displacement, four each), the cap and the three minima, then the
+# jump's four updates.  A lane in the band runs two k_disp more.
 LEAP_JUMP_OPS = 68
 # The default unroll of the hybrid loop (exact iterations after a jump).
 HYB_UNROLL = predict.HYB_UNROLL
@@ -1807,6 +1809,12 @@ def k2_modes(live, card: str):
                     raise AssertionError(f"phase 20 K2 {algo}/{split} != K2 iter on {name}")
         print(f"phase 20 K2 modes [{name}]: n={balls[0].numel()}, algo {K2_ALGOS} x split "
               f"{K2_SPLITS} each bit-equal to its plain version and to K2 iter [{card}]")
+    # What one jump costs in instructions: cuobjdump -sass of a kernel that
+    # runs one leap_jump from csrc/landing_sim.cuh, less the same kernel's
+    # loads and stores alone.
+    for rule, (count, by_class) in k2_leap_probe.jump_sass(_build.CSRC_DIR).items():
+        print(f"phase 20 SASS of one jump ({rule} rule): {count} instructions "
+              f"(tools/k2_leap_probe.py's one_jump less no_jump); {by_class} [{card}]")
     out = {}
     iter_call = lambda: predict_cuda.landing_sims_batched(*live)
     iter_call()

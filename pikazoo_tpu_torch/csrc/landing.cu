@@ -33,14 +33,16 @@
 // over a span proven free of events, then one exact iteration), or the
 // hybrid (hyb: a jump, then `unroll` exact iterations).  The leap cuts a
 // warp's longest trajectory from its frames to its events; each trip costs
-// more arithmetic, in int32 here, with the integer multiply and divide the
-// TPU's vector unit lacks (the JAX package's leap carried integer-valued
-// float32 for that reason).  All modes give the frame loop's results bit
-// for bit.  The JAX package's split="ydir" (three 2-lane candidate loops
-// grouped by launch y-direction, so fast lanes stop paying for slow ones)
-// is this same launch: the threads are lane-major, so every warp already
-// holds envs of one candidate kind and every candidate runs its own loop,
-// the finest grouping there is.
+// more arithmetic, in int32 here, with the integer multiply the TPU's
+// vector unit lacks (the JAX package's leap carried integer-valued float32
+// for that reason).  The jump is laid out for the card (landing_sim.cuh):
+// no division in the loop (a multiplier for |vx| computed once a lane), at
+// most one square root, selects for the net band.  All modes give the frame
+// loop's results bit for bit.  The JAX package's split="ydir" (three 2-lane
+// candidate loops grouped by launch y-direction, so fast lanes stop paying
+// for slow ones) is this same launch: the threads are lane-major, so every
+// warp already holds envs of one candidate kind and every candidate runs
+// its own loop, the finest grouping there is.
 
 #include <cstdint>
 
@@ -55,7 +57,8 @@ using pika::kLeap;
 using pika::sim_any;
 
 // The default unroll of each loop, as the JAX kernel takes them
-// (predict_pallas.py:58): leaps a trip, or exact iterations after a jump.
+// (predict_pallas.py:58): leaps a trip (which the card's leap loop does not
+// read), or exact iterations after a jump.
 int32_t resolve_unroll(int32_t algo, int32_t unroll) {
   if (unroll > 0) return unroll;
   return algo == kHyb ? 32 : 1;
@@ -178,6 +181,60 @@ extern "C" int landing_sims_host(const int32_t* x, const int32_t* y,
     }
   }
   return 0;
+}
+
+// The jump's primitives for the CPU tests, element by element: quot(num,
+// vx) with vx's multiplier; k_disp(avy, d) with its check loops' steps
+// (down, up), the seed's square root scaled by `scale`, and k_disp_in_box
+// (for avy < d) likewise; a live lane's span at count c, in the loop its
+// (x, vx) start would run.  And the count of fast quotients taken outside
+// their box since the last call.
+extern "C" void leap_quot_host(const int32_t* num, const int32_t* vx,
+                               int32_t* q, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    q[i] = pika::quot<true>(num[i], pika::iabs(vx[i]), pika::leap_lane(vx[i]));
+  }
+}
+
+extern "C" void k_disp_host(const int32_t* avy, const int32_t* d, float scale,
+                            int32_t* k, int32_t* down, int32_t* up, int64_t n) {
+  pika::host_root_scale = scale;
+  for (int64_t i = 0; i < n; ++i) {
+    int32_t steps[2] = {0, 0};
+    k[i] = pika::k_disp(avy[i], d[i], steps);
+    down[i] = steps[0];
+    up[i] = steps[1];
+  }
+  pika::host_root_scale = 1.0f;
+}
+
+extern "C" void k_disp_in_box_host(const int32_t* avy, const int32_t* d,
+                                   float scale, int32_t* k, int64_t n) {
+  pika::host_root_scale = scale;
+  for (int64_t i = 0; i < n; ++i) k[i] = pika::k_disp_in_box(avy[i], d[i]);
+  pika::host_root_scale = 1.0f;
+}
+
+extern "C" void leap_span_host(const int32_t* x, const int32_t* y,
+                               const int32_t* vx, const int32_t* vy,
+                               const int32_t* c, int32_t full_rule,
+                               int32_t* k, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    const pika::LeapLane lane = pika::leap_lane(vx[i]);
+    const pika::LeapBound b =
+        pika::leap_fast(x[i], vx[i])
+            ? pika::leap_bound<true>(x[i], y[i], vx[i], vy[i], c[i],
+                                     full_rule != 0, lane)
+            : pika::leap_bound<false>(x[i], y[i], vx[i], vy[i], c[i],
+                                      full_rule != 0, lane);
+    k[i] = pika::leap_span(b, pika::iabs(vy[i]));
+  }
+}
+
+extern "C" int64_t leap_quot_outside_host() {
+  const int64_t n = pika::host_quot_outside;
+  pika::host_quot_outside = 0;
+  return n;
 }
 
 #endif  // __CUDACC__
