@@ -1,0 +1,6 @@
+"""device_idle.env: the share of the profiled calls' window in which the
+card ran no kernel, copy or set."""
+
+
+def read(run):
+    return (1 - run.profile.busy_s / run.profile.window_s) * 100
