@@ -35,6 +35,7 @@ from pikazoo_tpu_torch.core.rng import DrawState, fold_key, key_data, threefry2x
 from pikazoo_tpu_torch.core.state import I32, BallState, PlayerState
 from pikazoo_tpu_torch.envs.pika_volley import (SERVE_MODES, EnvConfig,
                                                 EnvState, env_frame)
+from pikazoo_tpu_torch.utils.profiling import trace_annotation
 
 BLOCK_ENVS = 1024  # the batch must be a multiple of this, as in JAX
 ACTION_TAG = 2  # threefry word-1 tag of the action stream (the seat adds 0/1)
@@ -309,11 +310,19 @@ def fused_rollout(state: EnvState, action_key, config: EnvConfig,
     must be int32, contiguous and on one device, and the batch a multiple of
     ``BLOCK_ENVS``.  A CUDA state launches ``csrc/fused_step.cu`` once, on a
     freshly packed buffer that it updates in place; the returned leaves are
-    views of that buffer.  A CPU state runs the plain version."""
-    _check_frames(frames)
-    _check_state(state)
-    return unpack_state(rollout_packed(pack_state(state, action_key), config,
-                                       frames))
+    views of that buffer.  A CPU state runs the plain version.  Each call
+    adds one to ``fused_rollout.calls``, the unit of its spans."""
+    fused_rollout.calls += 1
+    with trace_annotation("fused_rollout", unit=fused_rollout.calls):
+        _check_frames(frames)
+        with trace_annotation("fused.pack"):
+            _check_state(state)
+            packed = pack_state(state, action_key)
+        with trace_annotation("fused.run"):
+            packed = rollout_packed(packed, config, frames)
+        with trace_annotation("fused.unpack"):
+            return unpack_state(packed)
 
 
 fused_rollout.launches = 0
+fused_rollout.calls = 0

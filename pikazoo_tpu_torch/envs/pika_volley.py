@@ -37,6 +37,7 @@ from pikazoo_tpu_torch.envs.observations import (NUM_ACTIONS,
                                                  assemble_norm_obs_blocked,
                                                  assemble_norm_obs_fm,
                                                  assemble_obs)
+from pikazoo_tpu_torch.utils.profiling import trace_annotation
 
 SERVE_MODES = ("winner", "alternate", "random")
 
@@ -327,18 +328,19 @@ class PikaZoo:
         (one per seat, in [0, 18); out-of-range actions clamp as in JAX), on
         the state's device.  ``oracle`` (``S + (cap,)`` int32) supplies the
         frame's draws in place of the threefry stream."""
-        new_state, fr = self._advance(state, actions[..., 0], actions[..., 1],
-                                      oracle)
-        ts = TimeStep(
-            obs=assemble_obs(fr.p1, fr.p2, fr.ball,
-                             new_state.power_hit_key_down_prev),
-            rewards=torch.stack([fr.reward_p1, -fr.reward_p1], dim=-1),
-            terminated=fr.game_ended,
-            round_ended=fr.round_ended,
-            scores=new_state.scores,
-            touched_ground=fr.touched,
-            sounds=fr.sounds,
-        )
+        with trace_annotation("env.step"):
+            new_state, fr = self._advance(state, actions[..., 0], actions[..., 1],
+                                          oracle)
+            ts = TimeStep(
+                obs=assemble_obs(fr.p1, fr.p2, fr.ball,
+                                 new_state.power_hit_key_down_prev),
+                rewards=torch.stack([fr.reward_p1, -fr.reward_p1], dim=-1),
+                terminated=fr.game_ended,
+                round_ended=fr.round_ended,
+                scores=new_state.scores,
+                touched_ground=fr.touched,
+                sounds=fr.sounds,
+            )
         return new_state, ts
 
     # ``step`` already takes any batch shape; ``step_batch`` is the name the
@@ -354,10 +356,11 @@ class PikaZoo:
         terminated)``: ``norm_obs`` is (2B, 35) bf16 seat-blocked (rows
         [0, B) are player 1's view), ``reward_p1`` and ``terminated`` are
         (B,) int32; player 2's reward is ``-reward_p1``."""
-        new_state, fr = self._advance(state, a1, a2)
-        norm_obs = assemble_norm_obs_blocked(
-            new_state.p1, new_state.p2, new_state.ball,
-            new_state.power_hit_key_down_prev)
+        with trace_annotation("env.step"):
+            new_state, fr = self._advance(state, a1, a2)
+            norm_obs = assemble_norm_obs_blocked(
+                new_state.p1, new_state.p2, new_state.ball,
+                new_state.power_hit_key_down_prev)
         return new_state, norm_obs, fr.reward_p1, fr.game_ended
 
     def step_batch_learner_fm(self, state: EnvState, a1: torch.Tensor,
@@ -370,9 +373,11 @@ class PikaZoo:
         rewards, (2B,) float32 seat-blocked like the columns.  JAX's returns
         player 1's int32 reward alone; both seats' let a wrapper shape each
         seat's reward on this path (``wrappers.RewardByBallPosition``)."""
-        new_state, fr = self._advance(state, a1, a2)
-        norm_obs = assemble_norm_obs_fm(
-            new_state.p1, new_state.p2, new_state.ball,
-            new_state.power_hit_key_down_prev)
-        reward = fr.reward_p1.to(torch.float32)
-        return new_state, norm_obs, torch.cat([reward, -reward]), fr.game_ended
+        with trace_annotation("env.step"):
+            new_state, fr = self._advance(state, a1, a2)
+            norm_obs = assemble_norm_obs_fm(
+                new_state.p1, new_state.p2, new_state.ball,
+                new_state.power_hit_key_down_prev)
+            reward = fr.reward_p1.to(torch.float32)
+            rewards = torch.cat([reward, -reward])
+        return new_state, norm_obs, rewards, fr.game_ended

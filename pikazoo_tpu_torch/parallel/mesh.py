@@ -25,6 +25,8 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
+from pikazoo_tpu_torch.utils.profiling import trace_annotation
+
 ENV_AXIS = "env"
 
 
@@ -162,10 +164,11 @@ def all_reduce_sum(flat: torch.Tensor, mesh: EnvMesh) -> torch.Tensor:
     input is left as it is."""
     if not mesh.distributed:
         return flat
-    buf = _staged(flat.contiguous(), mesh).clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
-    all_reduce_sum.calls += 1
-    return buf.to(flat.device)
+    with trace_annotation("mesh.all_reduce"):
+        buf = _staged(flat.contiguous(), mesh).clone()
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+        all_reduce_sum.calls += 1
+        return buf.to(flat.device)
 
 
 def zero_counts() -> None:

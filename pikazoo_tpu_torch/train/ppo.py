@@ -46,6 +46,7 @@ from pikazoo_tpu_torch.train.fused_update import (check_int8_cells, check_mode,
                                                   fused_ppo_grads, fused_ppo_grads_fm)
 from pikazoo_tpu_torch.train.networks import (BF16, ActorCritic, Params, apply,
                                               apply_fm, normalize_obs)
+from pikazoo_tpu_torch.utils.profiling import trace_annotation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,17 +324,19 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
             reward=torch.empty((T, 2 * n), dtype=f32, device=device),
             done=torch.empty((T, 2 * n), dtype=f32, device=device))
         for t in range(T):
-            action, log_prob, value = policy_sample(params, norm, uniforms[t])
-            env_state, next_norm, reward, terminated = env.step_batch_learner_fm(
-                env_state, action[:n], action[n:])
-            done = (terminated == 1).to(f32)
-            traj.obs[t] = norm
-            traj.action[t] = action
-            traj.log_prob[t] = log_prob
-            traj.value[t] = value
-            traj.reward[t] = reward
-            traj.done[t] = torch.cat([done, done])
-            norm = next_norm
+            with trace_annotation("ppo.frame"):
+                with trace_annotation("ppo.policy"):
+                    action, log_prob, value = policy_sample(params, norm, uniforms[t])
+                env_state, next_norm, reward, terminated = env.step_batch_learner_fm(
+                    env_state, action[:n], action[n:])
+                done = (terminated == 1).to(f32)
+                traj.obs[t] = norm
+                traj.action[t] = action
+                traj.log_prob[t] = log_prob
+                traj.value[t] = value
+                traj.reward[t] = reward
+                traj.done[t] = torch.cat([done, done])
+                norm = next_norm
         return (env_state, norm), traj
 
     def local_columns(u: torch.Tensor) -> torch.Tensor:
@@ -475,40 +478,44 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
         """One update.  ``uniforms``, if given, are the update's global
         (T, 1, 2B) rows to sample with in place of the generator's draws
         (another framework's, in a cross-check); the generator is then not
-        advanced by them."""
-        uniforms = (draw_uniforms(runner.key) if uniforms is None
-                    else local_columns(uniforms.to(device)))
-        (env_state, last_norm), traj = rollout(runner.params, runner.env_state,
-                                               runner.last_obs, uniforms)
-        last_obs = assemble_obs(env_state.p1, env_state.p2, env_state.ball,
-                                env_state.power_hit_key_down_prev)
-        _, last_value = apply_fm(runner.params, last_norm, cfg.activation)
-        advantages, targets = gae_associative(traj.value, traj.reward, traj.done,
-                                              last_value, cfg.gamma, cfg.gae_lambda)
-        if cfg.learner_seats == "p1":
-            # Seat 1 is the first half of the (last) env axis of every leaf
-            # (of this rank's columns, on a mesh).
-            traj = Transition(*[leaf[..., :b] for leaf in traj])
-            advantages, targets = advantages[..., :b], targets[..., :b]
-        if cfg.shuffle_minibatches:
-            traj, advantages, targets = shuffle((traj, advantages, targets), runner.key)
-        params, opt_state, losses = update(runner.params, runner.opt_state, traj,
-                                           advantages, targets)
-        total, policy_loss, value_loss, entropy, approx_kl = losses.mean(dim=(0, 1))
-        if meshed:
-            sums = all_reduce_sum(torch.stack([traj.reward.sum(), traj.done.sum()]), mesh)
-            mean_reward, done_sum = sums[0] / (traj.reward.numel() * world), sums[1]
-        else:
-            mean_reward, done_sum = traj.reward.mean(), traj.done.sum()
-        metrics = TrainMetrics(
-            total_loss=total, policy_loss=policy_loss, value_loss=value_loss,
-            entropy=entropy, approx_kl=approx_kl, mean_reward=mean_reward,
-            # done is stored once per (env, seat); episodes are per env.
-            episodes_finished=done_sum / (2 if cfg.learner_seats == "both" else 1),
-            env_steps=cfg.rollout_length * B)
-        runner = PPORunnerState(params, opt_state, env_state, last_obs, runner.key,
-                                runner.update_index + 1)
-        return runner, metrics
+        advanced by them.  Its spans' unit is ``runner.update_index``."""
+        with trace_annotation("ppo.train_step", unit=runner.update_index):
+            uniforms = (draw_uniforms(runner.key) if uniforms is None
+                        else local_columns(uniforms.to(device)))
+            with trace_annotation("ppo.rollout"):
+                (env_state, last_norm), traj = rollout(runner.params, runner.env_state,
+                                                       runner.last_obs, uniforms)
+            with trace_annotation("ppo.gae"):
+                last_obs = assemble_obs(env_state.p1, env_state.p2, env_state.ball,
+                                        env_state.power_hit_key_down_prev)
+                _, last_value = apply_fm(runner.params, last_norm, cfg.activation)
+                advantages, targets = gae_associative(traj.value, traj.reward, traj.done,
+                                                      last_value, cfg.gamma, cfg.gae_lambda)
+            if cfg.learner_seats == "p1":
+                # Seat 1 is the first half of the (last) env axis of every leaf
+                # (of this rank's columns, on a mesh).
+                traj = Transition(*[leaf[..., :b] for leaf in traj])
+                advantages, targets = advantages[..., :b], targets[..., :b]
+            if cfg.shuffle_minibatches:
+                traj, advantages, targets = shuffle((traj, advantages, targets), runner.key)
+            with trace_annotation("ppo.update"):
+                params, opt_state, losses = update(runner.params, runner.opt_state, traj,
+                                                   advantages, targets)
+            total, policy_loss, value_loss, entropy, approx_kl = losses.mean(dim=(0, 1))
+            if meshed:
+                sums = all_reduce_sum(torch.stack([traj.reward.sum(), traj.done.sum()]), mesh)
+                mean_reward, done_sum = sums[0] / (traj.reward.numel() * world), sums[1]
+            else:
+                mean_reward, done_sum = traj.reward.mean(), traj.done.sum()
+            metrics = TrainMetrics(
+                total_loss=total, policy_loss=policy_loss, value_loss=value_loss,
+                entropy=entropy, approx_kl=approx_kl, mean_reward=mean_reward,
+                # done is stored once per (env, seat); episodes are per env.
+                episodes_finished=done_sum / (2 if cfg.learner_seats == "both" else 1),
+                env_steps=cfg.rollout_length * B)
+            runner = PPORunnerState(params, opt_state, env_state, last_obs, runner.key,
+                                    runner.update_index + 1)
+            return runner, metrics
 
     train_step.rollout_fn = rollout
     train_step.policy_sample_fn = policy_sample
