@@ -28,7 +28,9 @@ step and frame by frame, and the oracle draw mode card vs CPU; the landing
 kernel's leap, hybrid and mixed modes with the ydir split, each bit-equal to
 its plain version and to the frame loop, timed beside it; and the meshed
 trainer: a one-rank nccl mesh bit-equal to the unmeshed trainer, two ranks
-sharing the card over gloo against one rank, and the CLI's --distributed.
+sharing the card over gloo against one rank, and the CLI's --distributed; and
+the learner's env step as one kernel (``csrc/learner_step.cu``), bit-equal to
+its plain version over 300 frames of each seat mix, timed beside its bound.
 Every phase prints at least one line; any failure raises and the script exits non-zero.  The line
 before the last lists every kernel with its launches on the main path, its
 error against its plain version, its time, its plain version's time and its
@@ -54,6 +56,8 @@ import torch
 
 from pikazoo_tpu_torch import EnvConfig, PikaZoo, _build, fused_rollout, pikazoo_v0
 from pikazoo_tpu_torch.core import fused_step, predict, predict_cuda
+from pikazoo_tpu_torch.core import learner_step as learner_step_module
+from pikazoo_tpu_torch.core.learner_step import learner_step
 from pikazoo_tpu_torch.core.predict import landing_sims_any
 from pikazoo_tpu_torch.envs import OBS_HIGH, OBS_LOW
 from pikazoo_tpu_torch.envs.pika_volley import EnvState, batch_keys
@@ -259,6 +263,7 @@ def rollout_checks(env: PikaZoo, batch: int, frames: int, actions_fn, card: str,
 def zero_counts():
     predict_cuda.zero_counts()
     fused_rollout.launches = 0
+    learner_step.launches = 0
     fused_update.zero_fm_counts()
     fused_ppo_grads.launches = 0
     compaction_probe.flat_sims.launches = 0
@@ -267,7 +272,7 @@ def zero_counts():
 
 
 # The sources whose kernels' registers, stack and spills phase 2 prints.
-PTXAS_SOURCES = ("landing.cu", "fm_roofline.cu", "fm_kernel_probe.cu")
+PTXAS_SOURCES = ("landing.cu", "learner_step.cu", "fm_roofline.cu", "fm_kernel_probe.cu")
 
 
 def build_all(card: str):
@@ -277,7 +282,8 @@ def build_all(card: str):
         lib = build()
         return lib._name, time.perf_counter() - t0
 
-    libraries = (predict_cuda._library, fused_step._library, fused_update._library_bf16, fused_update._library_int8, fused_update._library_k4,
+    libraries = (predict_cuda._library, fused_step._library, learner_step_module._library,
+                 fused_update._library_bf16, fused_update._library_int8, fused_update._library_k4,
                  compaction_probe._library, fm_roofline._library, fm_kernel_probe._library)
     with ThreadPoolExecutor(max_workers=len(libraries) + 1) as pool:
         builds = [pool.submit(timed_build, b) for b in libraries]
@@ -965,7 +971,8 @@ def train(env_config: EnvConfig, cfg: PPOConfig, updates: int, label: str, card:
                 "fused_ppo_grads": fused_ppo_grads.launches,
                 "k4_by_kernel": dict(fused_ppo_grads.launches_by_kernel),
                 "landing_sims_batched": predict_cuda.landing_sims_batched.launches,
-                "fused_rollout": fused_rollout.launches}
+                "fused_rollout": fused_rollout.launches,
+                "learner_step": learner_step.launches}
     frames = updates * cfg.rollout_length
     advanced = runner.env_state.step_count - start
     if not bool((advanced == frames).all()):
@@ -986,15 +993,19 @@ def train(env_config: EnvConfig, cfg: PPOConfig, updates: int, label: str, card:
     return runner, train_step, launches, rate
 
 
-def expect_launches(label: str, launches, k1_mode: str = "", k1=0, k4=0, landing=0):
+def expect_launches(label: str, launches, k1_mode: str = "", k1=0, k4=0, landing=0,
+                    steps=0):
     """The run launched exactly ``k1`` K1 calls, all in ``k1_mode``, ``k4`` K4
-    calls and ``landing`` landing kernels, and no fused rollout."""
+    calls, ``landing`` landing kernels and ``steps`` learner steps (one a
+    frame of a rollout), and no fused rollout."""
     by_mode = launches["fused_ppo_grads_fm"]
     others = {m: n for m, n in by_mode.items() if m != k1_mode and n}
     if (by_mode.get(k1_mode, 0) != k1 or others or launches["fused_ppo_grads"] != k4
-            or launches["landing_sims_batched"] != landing or launches["fused_rollout"]):
+            or launches["landing_sims_batched"] != landing or launches["fused_rollout"]
+            or launches["learner_step"] != steps):
         raise AssertionError(f"{label}: launches {launches}, want {k1} K1 in mode "
-                             f"{k1_mode or '-'}, {k4} K4, {landing} landing, no other")
+                             f"{k1_mode or '-'}, {k4} K4, {landing} landing, {steps} "
+                             "learner steps, no other")
 
 
 def expect_kernels(label: str, got: dict, want: dict, card: str, phase: int):
@@ -1460,20 +1471,23 @@ def k1_counts() -> dict:
             "by_kernel": dict(fused_ppo_grads_fm.launches_by_kernel),
             "fused_ppo_grads": fused_ppo_grads.launches,
             "landing_sims_batched": predict_cuda.landing_sims_batched.launches,
-            "fused_rollout": fused_rollout.launches}
+            "fused_rollout": fused_rollout.launches,
+            "learner_step": learner_step.launches}
 
 
 def wrapped_training(card: str):
     """Phase 16: the CLI's ``main`` through the wrappers at B=65536, run A
     uninterrupted and run B stopped after a checkpoint and resumed by a
     second ``main``; the two final runners bit-equal, K1 bf16 launched 16
-    times an update (A and B once a chunk) in each, nothing else; the
+    times an update (A and B once a chunk) and the learner step once a frame
+    through the wrappers in each, nothing else; the
     checkpoint's save and restore timed at this width."""
     cfg = dataclasses.replace(LEARNER, num_actions=13)
     calls = WRAPPED_UPDATES * cfg.update_epochs * cfg.num_minibatches
     chunks = WRAPPED_UPDATES * k1_chunks(cfg)
     want = {"by_mode": {"none": calls}, "by_kernel": {"bf16_chain": chunks, "bf16_dw": chunks},
-            "fused_ppo_grads": 0, "landing_sims_batched": 0, "fused_rollout": 0}
+            "fused_ppo_grads": 0, "landing_sims_batched": 0, "fused_rollout": 0,
+            "learner_step": WRAPPED_UPDATES * cfg.rollout_length}
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
         runs, counts = {}, {}
         for run, steps in (("A", [(WRAPPED_UPDATES, WRAPPED_UPDATES)]),
@@ -1539,7 +1553,7 @@ def evaluate_policy(card: str):
     got = k1_counts()
     frames = EVAL_GATE["max_frames"]
     if (got["landing_sims_batched"] != frames or got["fused_rollout"] or got["fused_ppo_grads"]
-            or any(got["by_mode"].values())):
+            or got["learner_step"] or any(got["by_mode"].values())):
         raise AssertionError(f"phase 17: launches {got}, want {frames} landing launches only")
     if games < EVAL_GAMES or not rate > EVAL_WIN_RATE:
         raise AssertionError(f"phase 17: vs_ai_policy won {wins}/{games} ({rate:.4f}); the "
@@ -1902,6 +1916,131 @@ def mesh_run(cfg: PPOConfig, mesh, updates: int):
         first = runner.env_state if first is None else first
     return runner, torch.stack(metrics), ms, first
 
+# Phase 22: the learner step's kernel (csrc/learner_step.cu) against its plain
+# version, each seat mix at the learner's width, and once with a ragged
+# batch; a few actions out of range (both sides clamp them).  A game to 2,
+# or to 1 where both seats are the rule AI, so that games end in 300 frames.
+LEARNER_STEP_FRAMES = 300
+LEARNER_STEP_CASES = (
+    ("human seats (self-play)", EnvConfig(winning_score=2), AI_BATCH),
+    ("AI seat 1, serve random", EnvConfig(winning_score=2, serve="random",
+                                          is_player1_computer=True), AI_BATCH),
+    ("AI seat 2, serve alternate, no auto reset",
+     EnvConfig(winning_score=2, serve="alternate", auto_reset=False,
+               is_player2_computer=True), AI_BATCH),
+    ("AI vs AI", EnvConfig(winning_score=1, is_player1_computer=True,
+                           is_player2_computer=True), AI_BATCH),
+    ("AI vs AI, serve random, ragged batch",
+     EnvConfig(winning_score=1, serve="random", is_player1_computer=True,
+               is_player2_computer=True), 1000),
+)
+
+
+def step_outputs(out) -> dict:
+    """A learner step's outputs by name: every ``EnvState`` leaf, the
+    observations, the rewards and ``terminated``."""
+    state, obs, rewards, terminated = out
+    return dict(named_tensors(state, "state."), obs=obs, rewards=rewards,
+                terminated=terminated)
+
+
+FLOAT_BITS = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits as integers of its width; others as they are."""
+    return t.view(FLOAT_BITS[t.dtype]) if t.dtype in FLOAT_BITS else t
+
+
+def hold_learner_step(label: str, cfg: EnvConfig, batch: int, seed: int, card: str):
+    """``LEARNER_STEP_FRAMES`` frames of the kernel beside the plain version
+    from one reset, with the same random actions; raises at the first frame
+    whose outputs are not bit-equal (the observations as int16, the rewards
+    as int32 bits).  Returns the kernel's last state and the largest
+    absolute difference of any output over the frames."""
+    env = PikaZoo(cfg)
+    plain_state, _ = env.reset_batch(seed, batch, device="cuda")
+    state = plain_state
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    before = learner_step.launches
+    points = ends = 0
+    err = 0.0
+    for frame in range(LEARNER_STEP_FRAMES):
+        a1, a2 = (torch.randint(-2, 20, (batch,), generator=gen, device="cuda",
+                                dtype=torch.int32) for _ in range(2))
+        want = env.step_batch_learner_fm_plain(plain_state, a1, a2)
+        got = env.step_batch_learner_fm(state, a1, a2)
+        w, g = step_outputs(want), step_outputs(got)
+        gaps = torch.stack([(w[name].double() - g[name].double()).abs().max() for name in w])
+        err = max(err, float(gaps.max()))
+        differ = [name for name in w if not torch.equal(bits(w[name]), bits(g[name]))]
+        if differ:
+            raise AssertionError(f"phase 22 [{label}] frame {frame}: the kernel differs "
+                                 f"from the plain version in {differ}, by up to {err}")
+        plain_state, state = want[0], got[0]
+        scored = want[2][:batch] != 0
+        points += int(scored.sum())
+        ends += int((scored & (want[3] == 1)).sum())
+    launches = learner_step.launches - before
+    if launches != LEARNER_STEP_FRAMES or points == 0 or ends == 0:
+        raise AssertionError(f"phase 22 [{label}]: {launches} launches in "
+                             f"{LEARNER_STEP_FRAMES} frames, {points} points, {ends} games ended")
+    print(f"phase 22 kernel vs plain [{label}]: B={batch} x {LEARNER_STEP_FRAMES} frames "
+          f"bit-equal (every EnvState leaf, observation bits, reward bits, terminated); "
+          f"{points} points, {ends} games ended; {launches} launches; largest difference "
+          f"{err} [{card}]")
+    return state, err
+
+
+def learner_step_bytes(batch: int) -> int:
+    """The bytes one learner step must move: the 54 state rows read and
+    written, two int32 actions read, 70 bf16 observations and 2 float32
+    rewards written, an env."""
+    return batch * (2 * 54 * 4 + 2 * 4 + 2 * 35 * 2 + 2 * 4)
+
+
+def time_learner_step(label: str, cfg: EnvConfig, state: EnvState, card: str):
+    """The kernel's ms a step (CUDA events over 30 launches, the stream held
+    while the host queues them: 30 calls of up to ~800 us of host each fit in
+    the hold's ~25 ms), the plain version's, the host's time a call, and the
+    byte bound, from the live ``state``."""
+    env = PikaZoo(cfg)
+    batch = state.scores.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    a1, a2 = (torch.randint(0, 18, (batch,), generator=gen, device="cuda", dtype=torch.int32)
+              for _ in range(2))
+    kernel = lambda: env.step_batch_learner_fm(state, a1, a2)
+    plain = lambda: env.step_batch_learner_fm_plain(state, a1, a2)
+    kernel(), plain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        kernel()
+    host_us = (time.perf_counter() - t0) * 1e4
+    torch.cuda.synchronize()
+    p1, k1, k2, p2 = (cuda_ms(plain, 3), cuda_ms(kernel, 30, hold=True),
+                      cuda_ms(kernel, 30, hold=True), cuda_ms(plain, 3))
+    step_bound = bound(learner_step_bytes(batch), {})
+    print(f"phase 22 time [{label}] B={batch}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+          f"{p1:.3f} / {p2:.3f} ms; bound {step_bound[0]:.5f} ms by {step_bound[1]} "
+          f"({learner_step_bytes(batch) / 1e6:.1f} MB); {host_us:.1f} us of host a call "
+          f"[{card}]")
+    return min(k1, k2), min(p1, p2), step_bound
+
+
+def learner_step_phase(card: str):
+    """Phase 22: every case held, then the kernel timed from the self-play
+    and the AI-vs-AI live states.  Returns the kernels line's (error, ms,
+    plain ms, bound): the largest difference of any case, and the times of
+    the self-play step, the PPO rollout's."""
+    live, err = {}, 0.0
+    for seed, (label, cfg, batch) in enumerate(LEARNER_STEP_CASES):
+        state, case_err = hold_learner_step(label, cfg, batch, seed, card)
+        live[label], err = (cfg, state), max(err, case_err)
+    timed = [time_learner_step(label, *live[label], card)
+             for label in ("human seats (self-play)", "AI vs AI")]
+    return (err, *timed[0])
+
 
 def meshed_trainer(card: str):
     """Phase 21: (1) a one-rank nccl group's mesh == the unmeshed trainer,
@@ -2188,8 +2327,10 @@ def main() -> int:
     finally:
         restore()
     k1_launches = learner_launches["fused_ppo_grads_fm"]["none"]
+    step_launches = learner_launches["learner_step"]
     expect_launches("self-play", learner_launches, "none",
-                    k1=LEARNER_UPDATES * LEARNER.update_epochs * LEARNER.num_minibatches)
+                    k1=LEARNER_UPDATES * LEARNER.update_epochs * LEARNER.num_minibatches,
+                    steps=LEARNER_UPDATES * LEARNER.rollout_length)
     chunks = LEARNER_UPDATES * k1_chunks(LEARNER)
     expect_kernels("self-play, K1 bf16", learner_launches["by_kernel"],
                    {"bf16_chain": chunks, "bf16_dw": chunks}, card, 10)
@@ -2202,9 +2343,11 @@ def main() -> int:
     _, _, vs_ai, _ = train(EnvConfig(winning_score=15, auto_reset=True,
                                      is_player2_computer=True),
                            VS_AI, 1, "vs rule AI, learner seat 1", card)
+    # The learner step's kernel runs the rule AI's landing loops itself: no
+    # landing kernel launches from the rollout.
     expect_launches("vs rule AI", vs_ai, "none",
                     k1=VS_AI.update_epochs * VS_AI.num_minibatches,
-                    landing=VS_AI.rollout_length)
+                    steps=VS_AI.rollout_length)
 
     # Phase 11: K4 and K1's other modes vs their plain versions on the card:
     # full width, ragged, and for int8 one dynamic-scale cell of 3000 columns
@@ -2293,7 +2436,8 @@ def main() -> int:
                                           "self-play, K4", card, phase=12)
     k4_launches = k4_run["fused_ppo_grads"]
     expect_launches("self-play, K4", k4_run,
-                    k4=K4_UPDATES * cfg.update_epochs * cfg.num_minibatches)
+                    k4=K4_UPDATES * cfg.update_epochs * cfg.num_minibatches,
+                    steps=K4_UPDATES * cfg.rollout_length)
     # Its two kernels once a chunk of CHUNK_COLS rows, K1's none.
     rows = cfg.rollout_length // cfg.num_minibatches * 2 * cfg.num_envs
     chunks = k4_launches * -(-rows // fused_update.CHUNK_COLS)
@@ -2316,7 +2460,7 @@ def main() -> int:
         runner, train_step, run, _ = train(EnvConfig(auto_reset=True), cfg, 1,
                                            f"self-play, K1 {name}", card, phase=12)
         calls = cfg.update_epochs * cfg.num_minibatches
-        expect_launches(f"self-play, K1 {name}", run, name, k1=calls)
+        expect_launches(f"self-play, K1 {name}", run, name, k1=calls, steps=cfg.rollout_length)
         mode_launches[name] = run["fused_ppo_grads_fm"][name]
         # Which kernels served, each chunk of frames: the int8 mode's split
         # kernels (A, S a layer, Q and the head's B), the other modes' the
@@ -2355,6 +2499,9 @@ def main() -> int:
     # the card over gloo, and the CLI's --distributed.
     meshed_trainer(card)
 
+    # Phase 22: the learner step's kernel against its plain version, and timed.
+    learner_step_stats = learner_step_phase(card)
+
     ms, plain_ms, k2_bound = timed[f"AI self-play frame {HARVEST_FRAME}"]
     rows = K1_FULL[0] * K1_FULL[1]
     entries = [
@@ -2366,6 +2513,8 @@ def main() -> int:
           for algo in ("leap", "hyb")],
         ("fused_rollout", "fused_step.cu", "pikazoo_tpu/core/fused_step.py:200",
          fused_launches, fused_err, fused_ms, fused_plain_ms, fused_bound),
+        # No TPU kernel: JAX jits the learner step (pikazoo_tpu/envs/pika_volley.py:359).
+        ("learner_step", "learner_step.cu", "none", step_launches, *learner_step_stats),
         ("fused_ppo_grads_fm", "fused_update_bf16.cu", "pikazoo_tpu/train/fused_update.py:504",
          k1_launches, k1_err, k1_ms, k1_plain_ms, grad_bound(rows)),
     ]

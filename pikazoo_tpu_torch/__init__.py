@@ -6,10 +6,12 @@ imports ``torch`` and never ``jax``; module names mirror ``pikazoo_tpu`` so
 each counterpart is easy to find.  On a CUDA device the rule AI's landing
 simulation runs as a hand-written Hopper kernel (``csrc/landing.cu``),
 ``fused_rollout`` advances a batch many frames in one launch of another
-(``csrc/fused_step.cu``), and the learner's minibatch gradient runs in
-others: feature-major as two kernels in its bf16 and int8fwd modes, with
-or without the bf16 backward chain (``csrc/fused_update_bf16.cu``), as
-four in its int8 mode (``csrc/fused_update_int8.cu``), or row-major as two
+(``csrc/fused_step.cu``), the learner's env step is one launch of a third
+(``csrc/learner_step.cu``, the same frame code), and the learner's minibatch
+gradient runs in others: feature-major as two kernels in its bf16 and
+int8fwd modes, with or without the bf16 backward chain
+(``csrc/fused_update_bf16.cu``), as four in its int8 mode
+(``csrc/fused_update_int8.cu``), or row-major as two
 (``csrc/k4_split.cu``); all are built with ``nvcc`` at first use into
 ``build/kernels/``.  On the CPU they run as plain PyTorch.  The entry
 points (``PikaZoo.reset`` / ``reset_batch``, ``make_ppo_trainer``,

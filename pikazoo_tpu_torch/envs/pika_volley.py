@@ -11,7 +11,11 @@ dimension out: every function takes leaves of one batch shape ``S``
 Every leaf equals the JAX package's for the same key and actions; the tests
 hold them frame by frame.  With a computer seat, each frame runs the landing
 simulation once for the whole batch, on CUDA as one launch of the
-hand-written kernel (``core.predict_cuda``).  ``reset`` takes the previous
+hand-written kernel (``core.predict_cuda``).  The PPO rollout's step,
+``step_batch_learner_fm``, is on CUDA one launch of another
+(``core.learner_step``): the whole frame, the observations and the rewards,
+with the new state's leaves views of one buffer it wrote; on the CPU it runs
+the same eager ops as the other steps.  ``reset`` takes the previous
 state (``carry``), a starting draw counter and an oracle of recorded draws,
 and ``step`` the oracle, as the JAX package's do: the PettingZoo adapter
 (``compat``) and the parity replay use them.
@@ -372,12 +376,33 @@ class PikaZoo:
         (the layout the fused gradient kernel consumes), and both seats'
         rewards, (2B,) float32 seat-blocked like the columns.  JAX's returns
         player 1's int32 reward alone; both seats' let a wrapper shape each
-        seat's reward on this path (``wrappers.RewardByBallPosition``)."""
+        seat's reward on this path (``wrappers.RewardByBallPosition``).
+
+        A CUDA state takes one launch of the hand-written kernel
+        (``core.learner_step``, ``csrc/learner_step.cu``), any seats, serve
+        mode and batch; the returned state's leaves are then views of one new
+        int32 buffer the kernel wrote, and ``terminated`` is its
+        ``game_ended``.  A CPU state runs the plain version,
+        :meth:`step_batch_learner_fm_plain`, which the kernel repeats bit for
+        bit."""
         with trace_annotation("env.step"):
-            new_state, fr = self._advance(state, a1, a2)
-            norm_obs = assemble_norm_obs_fm(
-                new_state.p1, new_state.p2, new_state.ball,
-                new_state.power_hit_key_down_prev)
-            reward = fr.reward_p1.to(torch.float32)
-            rewards = torch.cat([reward, -reward])
+            if state.scores.device.type == "cpu":
+                return self.step_batch_learner_fm_plain(state, a1, a2)
+            from pikazoo_tpu_torch.core.learner_step import learner_step
+            return learner_step(self.config, state, a1, a2)
+
+    def step_batch_learner_fm_plain(self, state: EnvState, a1: torch.Tensor,
+                                    a2: torch.Tensor
+                                    ) -> Tuple[EnvState, torch.Tensor,
+                                               torch.Tensor, torch.Tensor]:
+        """The plain PyTorch version of :meth:`step_batch_learner_fm`, on
+        any device: the frame, the observations and the rewards as eager
+        ops (with a computer seat, the landing simulation on CUDA is one
+        launch of ``core.predict_cuda``'s kernel)."""
+        new_state, fr = self._advance(state, a1, a2)
+        norm_obs = assemble_norm_obs_fm(
+            new_state.p1, new_state.p2, new_state.ball,
+            new_state.power_hit_key_down_prev)
+        reward = fr.reward_p1.to(torch.float32)
+        rewards = torch.cat([reward, -reward])
         return new_state, norm_obs, rewards, fr.game_ended

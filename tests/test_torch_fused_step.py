@@ -440,8 +440,9 @@ def test_cpu_call_launches_nothing():
 
 
 def test_kernel_rows_follow_pack_order():
-    """The kernel's field enum names the packed rows in pack order."""
-    text = (_build.CSRC_DIR / "fused_step.cu").read_text()
+    """The kernel's field enum (in the frame code it shares with the
+    learner step) names the packed rows in pack order."""
+    text = (_build.CSRC_DIR / "env_frame.cuh").read_text()
     body = re.search(r"enum Field \{(.*?)\};", text, re.S).group(1)
     names = re.findall(r"\w+", re.sub(r"//[^\n]*", "", body))
     want = ([f"P1_{f.upper()}" for f in fused_step._PLAYER_FIELDS] +
