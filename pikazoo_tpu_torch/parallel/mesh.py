@@ -30,16 +30,19 @@ from pikazoo_tpu_torch.utils.profiling import trace_annotation
 ENV_AXIS = "env"
 
 
-def init_distributed(backend: Optional[str] = None, **kwargs) -> None:
+def init_distributed(backend: Optional[str] = None, device=None, **kwargs) -> None:
     """Join the process group, once, on every rank.
 
-    The rendezvous comes from ``kwargs`` (``init_method``, ``rank``,
-    ``world_size``, as ``torch.distributed.init_process_group`` takes them)
-    or from the ``torchrun`` environment (``RANK``, ``WORLD_SIZE``,
-    ``MASTER_ADDR``, ``MASTER_PORT``).  A no-op when the group exists
-    already, or when neither gives a rendezvous (one process).  ``backend``:
-    ``nccl`` when CUDA is available, else ``gloo``, unless named.  A failed
-    init raises."""
+    The rendezvous comes from ``kwargs`` (``init_method`` or ``store``,
+    ``rank``, ``world_size``, ``timeout``, as
+    ``torch.distributed.init_process_group`` takes them) or from the
+    ``torchrun`` environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``).  A no-op when the group exists already, or when neither
+    gives a rendezvous (one process).  ``backend``: ``nccl`` when CUDA is
+    available, else ``gloo``, unless named.  ``device``, this rank's card
+    under nccl, becomes the process's current card and the group's
+    ``device_id``, so that the communicator, ``barrier`` and any call on the
+    default card land on it.  A failed init raises."""
     if dist.is_initialized():
         return
     env_given = all(k in os.environ for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
@@ -48,6 +51,10 @@ def init_distributed(backend: Optional[str] = None, **kwargs) -> None:
         return
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if device is not None and backend == "nccl":
+        device = torch.device(device)
+        torch.cuda.set_device(device)
+        kwargs["device_id"] = device
     dist.init_process_group(backend=backend, **kwargs)
 
 
@@ -160,20 +167,23 @@ def barrier(mesh: EnvMesh) -> None:
 
 def all_reduce_sum(flat: torch.Tensor, mesh: EnvMesh) -> torch.Tensor:
     """The sum over ranks of a tensor, the same bits on every rank (one
-    ``all_reduce``; each call adds one to ``all_reduce_sum.calls``).  The
-    input is left as it is."""
+    ``all_reduce``; each call adds one to ``all_reduce_sum.calls`` and the
+    tensor's bytes to ``all_reduce_sum.bytes``).  The input is left as it
+    is."""
     if not mesh.distributed:
         return flat
     with trace_annotation("mesh.all_reduce"):
         buf = _staged(flat.contiguous(), mesh).clone()
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
         all_reduce_sum.calls += 1
+        all_reduce_sum.bytes += buf.numel() * buf.element_size()
         return buf.to(flat.device)
 
 
 def zero_counts() -> None:
-    """Set the collectives' call counts to 0."""
+    """Set the collectives' call counts, and ``all_reduce_sum.bytes``, to 0."""
     all_reduce_sum.calls = 0
+    all_reduce_sum.bytes = 0
     gather_batch.calls = 0
     replicated.calls = 0
 

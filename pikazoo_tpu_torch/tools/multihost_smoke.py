@@ -28,9 +28,12 @@ first rollout's trajectory
 (``params.*``), the final runner's env state and last observations gathered
 in rank order (``env.*``, ``last_obs``), the metrics of each update
 (``metrics``, (U, 7)), the env state after the first update, gathered
-(``first.env.*``), the counts and the ms of each update (``--no-traj``
-leaves the trajectory out); ``--save CKPT``
-writes the final runner's checkpoint (rank 0 writes).
+(``first.env.*``), the counts (``all_reduce_calls``, ``all_reduce_bytes``) and
+the ms of each update (``--no-traj`` leaves the trajectory out); ``--save
+CKPT`` writes the final runner's checkpoint (rank 0 writes).  ``--spans``
+runs the updates with the program's spans on and adds, for each span that
+holds a ``pikazoo.mesh.all_reduce`` span, how many it holds
+(``all_reduce_under.<name>``, the name without ``pikazoo.``).
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ from pikazoo_tpu_torch.train import PPOConfig, checkpoint, make_ppo_trainer  # n
 from pikazoo_tpu_torch.train import fused_update  # noqa: E402
 from pikazoo_tpu_torch.train.networks import apply_fm  # noqa: E402
 from pikazoo_tpu_torch.train.ppo import Transition, gae_associative  # noqa: E402
+from pikazoo_tpu_torch.utils.profiling import take_spans, tracing  # noqa: E402
 
 # Every collective of torch.distributed that a trainer could call.
 COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "broadcast",
@@ -131,6 +135,9 @@ def parse_args(argv=None):
     p.add_argument("--save", default=None, help="checkpoint the final runner here")
     p.add_argument("--no-traj", action="store_true",
                    help="leave the trajectory out of OUT (it is T x 35 x 2b bf16)")
+    p.add_argument("--spans", action="store_true",
+                   help="run the updates with the program's spans on and count the "
+                        "all_reduce spans under each parent span")
     args = p.parse_args(argv)
     if args.updates < 1:
         p.error("--updates must be at least 1")
@@ -142,7 +149,7 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     mesh_mod.init_distributed(backend=args.backend or "gloo",
                               init_method=f"tcp://127.0.0.1:{args.port}",
-                              rank=args.rank, world_size=args.world)
+                              rank=args.rank, world_size=args.world, device=device)
     try:
         return run(args, device)
     finally:
@@ -214,7 +221,7 @@ def run(args, device: torch.device) -> int:
     mesh_mod.zero_counts()
     fused_update.zero_fm_counts()
     metrics, ms = [], []
-    with count_collectives() as update_counts:
+    with count_collectives() as update_counts, tracing(args.spans):
         for update in range(args.updates):
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -234,6 +241,12 @@ def run(args, device: torch.device) -> int:
     out["rollout_collectives"] = np.asarray(rollout_counts["calls"])
     out["update_collectives"] = np.asarray(update_counts["calls"])
     out["all_reduce_calls"] = np.asarray(mesh_mod.all_reduce_sum.calls)
+    out["all_reduce_bytes"] = np.asarray(mesh_mod.all_reduce_sum.bytes)
+    spans = take_spans()
+    for span in spans:
+        if span.name == "pikazoo.mesh.all_reduce" and span.parent >= 0:
+            key = "all_reduce_under." + spans[span.parent].name[len("pikazoo."):]
+            out[key] = np.asarray(int(out.get(key, 0)) + 1)
     out["k1_launches"] = np.asarray(fused_update.fused_ppo_grads_fm.launches)
     out.update({f"params.{k}": as_numpy(v) for k, v in runner.params.items()})
     out.update({name: as_numpy(t) for name, t in

@@ -356,17 +356,20 @@ def make_ppo_trainer(env: PikaZoo, cfg: PPOConfig = PPOConfig(), device="cuda",
     # ----------------------------------------------------------- collectives --
     def adv_stats(madv: torch.Tensor):
         """The global mean and population std of the minibatch's advantages,
-        from the sum and then the sum of squared deviations over ranks."""
+        from the sum and then the sum of squared deviations over ranks (two
+        ``all_reduce`` in the span ``pikazoo.ppo.adv_stats``)."""
         count = madv.numel() * world
-        mean = all_reduce_sum(madv.sum().reshape(1), mesh)[0] / count
-        var = all_reduce_sum(((madv - mean) ** 2).sum().reshape(1), mesh)[0] / count
+        with trace_annotation("ppo.adv_stats"):
+            mean = all_reduce_sum(madv.sum().reshape(1), mesh)[0] / count
+            var = all_reduce_sum(((madv - mean) ** 2).sum().reshape(1), mesh)[0] / count
         return mean, torch.sqrt(var)
 
     def sum_over_ranks(grads: Dict[str, torch.Tensor], losses: torch.Tensor):
         """Grads and the five loss terms summed over ranks in one flat
-        ``all_reduce``."""
-        flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads.values()]
-                                        + [losses]), mesh)
+        ``all_reduce`` (in the span ``pikazoo.ppo.grad_sum``)."""
+        with trace_annotation("ppo.grad_sum"):
+            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads.values()]
+                                            + [losses]), mesh)
         out, start = {}, 0
         for k, g in grads.items():
             out[k] = flat[start:start + g.numel()].reshape(g.shape)

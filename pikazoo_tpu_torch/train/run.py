@@ -97,7 +97,7 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     if args.distributed:
-        init_distributed(backend="nccl" if device.type == "cuda" else "gloo")
+        init_distributed(backend="nccl" if device.type == "cuda" else "gloo", device=device)
     mesh = make_env_mesh(device)
     lead = mesh.rank == 0
     env = PikaZoo(EnvConfig(winning_score=args.winning_score, serve=args.serve,
