@@ -271,8 +271,11 @@ def zero_counts():
     fm_kernel_probe.zero_counts()
 
 
-# The sources whose kernels' registers, stack and spills phase 2 prints.
-PTXAS_SOURCES = ("landing.cu", "learner_step.cu", "fm_roofline.cu", "fm_kernel_probe.cu")
+# The sources whose kernels' registers, stack and spills phase 2 prints
+# (fused_update_bf16.cu: every chain_kernel instance beside K1 bf16's wgmma
+# kernel A).
+PTXAS_SOURCES = ("landing.cu", "learner_step.cu", "fm_roofline.cu", "fm_kernel_probe.cu",
+                 "fused_update_bf16.cu")
 
 
 def build_all(card: str):
@@ -300,9 +303,11 @@ def build_all(card: str):
             for entry, regs, stack, stores, loads in future.result():
                 print(f"phase 2 ptxas {src}: {entry}: {regs} registers, {stack} B stack, spill "
                       f"stores {stores} B, spill loads {loads} B")
-            # P2's kernel A issues each slice's wgmma back to back only if
-            # ptxas does not serialize them, as it does when a loop count is
-            # not a constant (its performance warning C7520; PERF.md §6).
+            # P2's and K1 bf16's wgmma kernels A issue each group's wgmma
+            # back to back only if ptxas does not serialize them, as it does
+            # when a loop count is not a constant or a wgmma sits under a
+            # condition (its performance warnings C7514, C7518, C7520;
+            # PERF.md §6).
             if any("wgmma" in n for n in notes[src]):
                 raise AssertionError(f"phase 2: ptxas serializes wgmma in {src}: {notes[src]}")
 
@@ -503,13 +508,13 @@ P3_VALUE_PATH_REL = 2e-5
 CLIP_EDGE = 1e-5
 
 
-def k1_inputs(frames: int, cols: int, activation: str, seed: int):
+def k1_inputs(frames: int, cols: int, activation: str, seed: int, hidden=HIDDEN):
     """A minibatch built as tests/test_fused_update.py:32-46 builds one, from
     numpy: uniform bf16 observations, uniform actions, logp_old of the
     network perturbed by 0.3 N(0, 1) so that both clip branches fire,
     normalised N(0, 1) advantages, targets = value + N(0, 1)."""
     rng = np.random.default_rng(seed)
-    net = ActorCritic(18, HIDDEN, activation,
+    net = ActorCritic(18, hidden, activation,
                       generator=torch.Generator().manual_seed(seed))
     params = {k: v.detach().cuda() for k, v in net.params().items()}
     card = lambda a: torch.from_numpy(a).cuda()
@@ -588,6 +593,15 @@ def operand_distance(got: torch.Tensor, want: torch.Tensor, keep=None):
     return (dd / max(ww, 1e-300)) ** 0.5, gw / max((gg * ww) ** 0.5, 1e-300)
 
 
+def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest absolute difference of two tensors, a frame and
+    OPERAND_COLS columns at a time, as :func:`operand_distance` walks them."""
+    got, want = (x.reshape(x.shape[0], -1, x.shape[-1]) for x in (got, want))
+    return max(float((got[:, t, c0:c0 + OPERAND_COLS].float()
+                      - want[:, t, c0:c0 + OPERAND_COLS].float()).abs().max())
+               for t in range(got.shape[1]) for c0 in range(0, got.shape[2], OPERAND_COLS))
+
+
 # The split designs' stage entries: (kernel A, its plain version, kernel B,
 # kernel B's plain version), kernel B's taking (chain, obs) as the call does.
 SPLIT_STAGES = {
@@ -606,9 +620,9 @@ def hold_split(name: str, label: str, args, kw, card: str, phase: int, design: s
     operands and bias grads within BF16_TOL's relative L2 and cos and its
     loss sums (as means) within its rtol; then kernel B on kernel A's own
     operands against ``k1_dw_plain`` on the same operands, each dW within
-    K1_DW_REL.  Raises on the first miss.  (The kernels line's error stays
-    the whole call's: an operand's error is a bf16 rounding flip, one ulp of
-    the operand.)"""
+    K1_DW_REL.  Raises on the first miss.  Returns kernel A's largest
+    absolute difference from its plain chain over the operands, the bias
+    grads and the loss sums (as means, as they are held)."""
     chain_fn, chain_plain, dw_fn, dw_plain = SPLIT_STAGES[design]
     loss_rtol, rel_l2, min_cos = BF16_TOL
     got = chain_fn(*args, **kw)
@@ -620,17 +634,19 @@ def hold_split(name: str, label: str, args, kw, card: str, phase: int, design: s
              *[(f"dpre{l}", got.dpres[l], want.dpres[l]) for l in range(L)],
              *[(f"db{l}", got.db[l][:, None, None], want.db[l][:, None, None]) for l in range(L)],
              ("dbpv", got.dbpv[:, None, None], want.dbpv[:, None, None])]
-    worst_rel, worst_cos = 0.0, 1.0
+    worst_rel, worst_cos, err = 0.0, 1.0, 0.0
     for leaf, g, w in pairs:
         rel, cos = operand_distance(g, w)
         if not (rel <= rel_l2 and cos >= min_cos):
             raise AssertionError(f"{name} kernel A [{label}]: {leaf} relative L2 {rel:.3e}, "
                                  f"cos {cos:.8f}")
         worst_rel, worst_cos = max(worst_rel, rel), min(worst_cos, cos)
+        err = max(err, max_abs_diff(g, w))
     inv_m = 1.0 / args[2].numel()
     if not torch.allclose(got.sums * inv_m, want.sums * inv_m, rtol=loss_rtol, atol=LOSS_ATOL):
         raise AssertionError(f"{name} kernel A [{label}]: loss sums {got.sums.tolist()} vs plain "
                              f"{want.sums.tolist()}")
+    err = max(err, float((got.sums * inv_m - want.sums * inv_m).abs().max()))
     del want
     obs = args[1]
     dw, dwpv = dw_fn(got, obs)
@@ -647,8 +663,10 @@ def hold_split(name: str, label: str, args, kw, card: str, phase: int, design: s
     chain_name = chain_plain.__name__
     print(f"phase {phase} {name} kernel A vs {chain_name} [{label}], obs {shape}, "
           f"{kw['activation']}: worst operand / bias grad relative L2 {worst_rel:.3e} cos "
-          f"{worst_cos:.8f}, loss sums {got.sums.tolist()}; kernel B vs k1_dw_plain on kernel "
-          f"A's operands: worst {worst_dw} relative L2 {rels[worst_dw]:.3e} [{card}]")
+          f"{worst_cos:.8f}, max |diff| {err:.3e}, loss sums {got.sums.tolist()}; kernel B vs "
+          f"k1_dw_plain on kernel A's operands: worst {worst_dw} relative L2 "
+          f"{rels[worst_dw]:.3e} [{card}]")
+    return err
 
 
 def k1_split_floor(rows: int, f: int = 35, x_rows: int = 0):
@@ -701,6 +719,53 @@ def split_times(name: str, args, kw, card: str, call_ms: float, phase: int):
           f"bytes {floor_ms:.3f} ms ({nbytes / 1e9:.2f} GB), the function's bound {b[0]:.3f} ms "
           f"by {b[1]}{relu} [{card}]")
     return a_ms, b_ms
+
+
+def k1_chain_work(rows: int, f: int = 35, num_actions: int = 18):
+    """(bytes, operations) of K1 bf16's kernel A over ``rows`` columns at
+    HIDDEN, as :func:`bound` takes them: its inputs read (observations, the
+    5 per-column scalars) and its workspace written once (2,112 bytes a
+    column at (256, 256)); its products (the forward, the head's and the
+    hidden dh) at the bf16 peak."""
+    widths = [f, *HIDDEN]
+    head = num_actions + 1
+    macs = (sum(i * o for i, o in zip(widths[:-1], widths[1:])) + 2 * widths[-1] * head
+            + sum(i * o for i, o in zip(widths[1:-1], widths[2:])))
+    ws = 2 * (2 * sum(HIDDEN) + fused_update.HEAD_PAD)
+    return rows * (f * 2 + 5 * 4 + ws), {"bf16": rows * 2 * macs}
+
+
+def chain_times(args, kw, card: str, phase: int = 9):
+    """K1 bf16's kernel A (``wgmma_chain_kernel`` at HIDDEN) at full width
+    alone, over the wrapper's chunks, twice, beside the plain chain's ms and
+    kernel A's bounds by bytes and by products.  Returns (ms, plain ms,
+    bound)."""
+    params, obs, action, *scalars = args
+    t_mb, _, n = obs.shape
+    common = dict(num_actions=kw["num_actions"], activation=kw["activation"],
+                  clip_eps=kw["clip_eps"], value_coef=kw["value_coef"],
+                  entropy_coef=kw["entropy_coef"], inv_m=1.0 / action.numel())
+    run = lambda: fused_update._run_bf16(
+        params, obs, action, scalars, chunk=fused_update.chunk_frames(t_mb, n),
+        stages=fused_update.STAGE_CHAIN, **common)
+    w1, w2 = cuda_ms(run, 5), cuda_ms(run, 5)
+    plain_ms = cuda_ms(lambda: fused_update.k1_chain_plain(*args, **kw), 1)
+    nbytes, ops = k1_chain_work(t_mb * n)
+    b = bound(nbytes, ops)
+    print(f"phase {phase} time K1 bf16 kernel A, {t_mb * n} columns: wgmma_chain_kernel "
+          f"{w1:.3f} / {w2:.3f} ms, plain {plain_ms:.3f} ms; bound {b[0]:.3f} ms by {b[1]} "
+          f"({bound(nbytes, {})[0]:.3f} ms by bytes, {bound(0, ops)[0]:.3f} ms by products) "
+          f"[{card}]")
+    return min(w1, w2), plain_ms, b
+
+
+def chain_key(cfg: PPOConfig) -> str:
+    """The ``launches_by_kernel`` key of kernel A in a trainer's K1 bf16 or
+    int8fwd calls: ``bf16_chain_wgmma`` where ``chain_design`` gives the call
+    to the wgmma kernel, else ``bf16_chain``."""
+    design = fused_update.chain_design(cfg.hidden, 35, cfg.num_actions, cfg.update_quant,
+                                       cfg.update_bwd_bf16)
+    return "bf16_chain_wgmma" if design == "wgmma" else "bf16_chain"
 
 
 def hold_k1_int8_split(label: str, args, kw, card: str) -> float:
@@ -1485,7 +1550,7 @@ def wrapped_training(card: str):
     cfg = dataclasses.replace(LEARNER, num_actions=13)
     calls = WRAPPED_UPDATES * cfg.update_epochs * cfg.num_minibatches
     chunks = WRAPPED_UPDATES * k1_chunks(cfg)
-    want = {"by_mode": {"none": calls}, "by_kernel": {"bf16_chain": chunks, "bf16_dw": chunks},
+    want = {"by_mode": {"none": calls}, "by_kernel": {chain_key(cfg): chunks, "bf16_dw": chunks},
             "fused_ppo_grads": 0, "landing_sims_batched": 0, "fused_rollout": 0,
             "learner_step": WRAPPED_UPDATES * cfg.rollout_length}
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
@@ -2311,11 +2376,27 @@ def main() -> int:
                                     tanh_kw, card, 9)
     # K1 bf16's two kernels, each against its plain version; its distance
     # from float64; A's and B's share of the call.
-    hold_split("K1 bf16", "full width", full, tanh_kw, card, 9)
+    chain_err = hold_split("K1 bf16", "full width", full, tanh_kw, card, 9)
     hold_split("K1 bf16", "ragged", k1_inputs(3, 1000, "relu", 22),
                dict(K1_KW, activation="relu"), card, 9)
+    # An odd number of tiles in the chunk (1 frame of 47): the wgmma
+    # kernel's second warpgroup has no tile in the last unit.
+    odd = k1_inputs(1, 3000, "tanh", 28)
+    hold_split("K1 bf16", "odd tile count", odd, tanh_kw, card, 9)
+    k1_err = max(k1_err, compare_grads("K1 [odd tile count]", fused_ppo_grads_fm, plain_fm, odd,
+                                       tanh_kw, BF16_TOL, card, 9))
+    del odd
     hold_k1_float64(full, tanh_kw, card)
     split_times("K1 bf16", full, tanh_kw, card, k1_ms, 9)
+    chain_ms, chain_plain_ms, chain_b = chain_times(full, tanh_kw, card)
+    # The bf16 mode at widths the wgmma kernel does not take: chain_kernel.
+    narrow = k1_inputs(2, 1000, "tanh", 27, hidden=(128, 64))
+    if fused_update.chain_design((128, 64), 35, 18) != "mma":
+        raise AssertionError("hidden (128, 64) is not chain_kernel's")
+    hold_split("K1 bf16", "hidden (128, 64), chain_kernel", narrow, tanh_kw, card, 9)
+    compare_grads("K1 [hidden (128, 64), chain_kernel]", fused_ppo_grads_fm, plain_fm, narrow,
+                  tanh_kw, BF16_TOL, card, 9)
+    del narrow
 
     # Phase 10: the learner through its entry points at full width.  The
     # symmetric self-play run is the main path of K1; its first minibatch is
@@ -2332,8 +2413,11 @@ def main() -> int:
                     k1=LEARNER_UPDATES * LEARNER.update_epochs * LEARNER.num_minibatches,
                     steps=LEARNER_UPDATES * LEARNER.rollout_length)
     chunks = LEARNER_UPDATES * k1_chunks(LEARNER)
+    if chain_key(LEARNER) != "bf16_chain_wgmma":
+        raise AssertionError("the learner's K1 bf16 calls are not the wgmma kernel's")
     expect_kernels("self-play, K1 bf16", learner_launches["by_kernel"],
-                   {"bf16_chain": chunks, "bf16_dw": chunks}, card, 10)
+                   {"bf16_chain_wgmma": chunks, "bf16_dw": chunks}, card, 10)
+    chain_launches = chunks
     args, kw = first[0]
     k1_err = max(k1_err, compare_grads("K1 [first live minibatch of update 1]",
                                        fused_ppo_grads_fm, plain_fm, args, kw, BF16_TOL,
@@ -2468,7 +2552,7 @@ def main() -> int:
         chunks = k1_chunks(cfg)
         want = ({"int8_chain": chunks, "int8_requant": len(cfg.hidden) * chunks,
                  "int8_dw": chunks, "int8_head_dw": chunks} if name == "int8"
-                else {"bf16_chain": chunks, "bf16_dw": chunks})
+                else {chain_key(cfg): chunks, "bf16_dw": chunks})
         expect_kernels(f"self-play, K1 {name}", run["by_kernel"], want, card, 12)
         time_learner_phases(runner, train_step, cfg, card, phase=12)
         del runner, train_step
@@ -2517,6 +2601,9 @@ def main() -> int:
         ("learner_step", "learner_step.cu", "none", step_launches, *learner_step_stats),
         ("fused_ppo_grads_fm", "fused_update_bf16.cu", "pikazoo_tpu/train/fused_update.py:504",
          k1_launches, k1_err, k1_ms, k1_plain_ms, grad_bound(rows)),
+        # K1 bf16's kernel A alone (launches: once a chunk in phase 10).
+        ("fused_ppo_grads_fm[kernel A]", "k1_wgmma.cuh", "pikazoo_tpu/train/fused_update.py:504",
+         chain_launches, chain_err, chain_ms, chain_plain_ms, chain_b),
     ]
     # (source, the forward's precision, which sets the bound)
     mode_sources = {"int8": ("fused_update_int8.cu", "int8"),

@@ -44,6 +44,11 @@
 //   256), W1 and the head twice): with every warp issuing its share, the
 //   compute warps spent about as long issuing copies as running mmas; one
 //   producer warp could not keep up, four can (measured on an H100).
+// - At hidden (256, 256) in the bf16 mode (the flagship learner's update),
+//   kernel A is k1_wgmma.cuh's wgmma_chain_kernel instead: the same
+//   workspace, bias grads and loss sums, on wgmma and TMA with two ping-pong
+//   consumer warpgroups (its note says how); chain_kernel serves every other
+//   call.
 // - Kernel B (dw_kernel, in k1_split.cuh, shared with the int8 mode and
 //   K4) computes each dW as one long-K product over the chunk's columns: dW_l = below_l . bf16(dpre_l)^T (below_0 = x, read again
 //   from obs), dWpv = bf16(h_top) . bf16(dheads)^T.  The grid is (column
@@ -67,7 +72,7 @@
 // columns are padded to a multiple of 64 in the workspace; columns >= N
 // hold dheads = dpre = 0 (and x = 0), so they add nothing to any dW.
 //
-// Resources (nvcc -Xptxas -v, sm_90a).  Kernel A: 640 threads, 96
+// Resources (nvcc -Xptxas -v, sm_90a).  Kernel A (chain_kernel): 640 threads, 96
 // registers, no spills, a 128-byte stack (ppo_column's per-column array);
 // shared memory at hidden (256, 256), F=35: x 6,912 B, h_0 and h_1 36,864
 // each, dheads 4,608, the head's f32 block 9,216, loss 1,040, bias and bias
@@ -76,14 +81,16 @@
 // to 2 stages of 32-deep slices.  Kernel B: 256 threads, 111 registers, no
 // spills, 110,592 B of shared memory (two blocks an SM).
 //
-// Where the time goes (H100, full width, tools/k1_split_probe.py): kernel A
-// ~70% of a call, kernel B ~30%.  In A, a third is neither the weight
-// stream nor the mmas: tanh ~2 ms, the loss on two warps ~2.5 ms, the x
-// load, copy-outs and barriers; the mmas and the stream the rest.  Not done
-// here (later work): wgmma and TMA, kernel B's operands kept in L2 (a chunk
-// small enough to stay there), the loss over more threads.
+// Where the time goes (H100, full width, tools/k1_split_probe.py, on
+// chain_kernel): kernel A ~70% of a call, kernel B ~30%.  In A, a third is
+// neither the weight stream nor the mmas: tanh ~2 ms, the loss on two warps
+// ~2.5 ms, the x load, copy-outs and barriers; the mmas and the stream the
+// rest.  wgmma_chain_kernel's figures are in PERF.md §6.  Not done here
+// (later work): kernel B on wgmma, its operands kept in L2 (a chunk small
+// enough to stay there).
 
 #include "k1_split.cuh"
+#include "k1_wgmma.cuh"
 
 // ------------------------------------------------------------- launch --
 // stages: 1 kernel A only (the workspace and the bias grads / loss sums),
@@ -96,7 +103,10 @@
 // in the bf16 mode; in int8fwd the int8 forward weights, W_l^T (H_l, kp_l)
 // and the merged head's (HEAD_PAD, kp_L), kp the contraction padded to 32,
 // with their L+1 scales sw (the bf16 weights then serve the backward only).
-// bwd_bf16: kernel A with the bf16 backward chain.
+// bwd_bf16: kernel A with the bf16 backward chain.  wgmma: kernel A is
+// k1_wgmma.cuh's wgmma_chain_kernel (the caller's choice, train/
+// fused_update.py `chain_design`; refused where k1w::takes does not hold: the
+// bf16 mode at hidden (256, 256)), else chain_kernel.
 static int round32(int x) { return (x + 31) / 32 * 32; }
 
 extern "C" int k1_bf16_launch(
@@ -107,7 +117,7 @@ extern "C" int k1_bf16_launch(
     float neg_inv_m, float ent_scale, float val_scale, void* ws, int ws_rows,
     long long ws_cols, int chunk_frames, void* partial_a, int blocks_a, void* partial_b,
     int ranges, void* out, void* stream, int stages, const void* const* qweights,
-    const void* sw, int bwd_bf16) {
+    const void* sw, int bwd_bf16, int wgmma) {
     const int L = num_layers;
     const bool q8 = qweights != nullptr;
     if (L < 1 || L > MAX_LAYERS || num_actions + 1 > HEAD_PAD || obs_dim > obs_dim_pad ||
@@ -133,11 +143,44 @@ extern "C" int k1_bf16_launch(
     for (int l = 0; l < L; ++l) { row_dp[l] = row; row += H[l]; }
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
+    const bool wg = wgmma != 0;
+    if (wg && !k1w::takes(L, H, obs_dim_pad, num_actions, q8, bwd_bf16))
+        return (int)cudaErrorInvalidValue;
 
     ParamsA pa = {};
+    k1w::Params pw = {};
     ChainKernel kernel_a = nullptr;
     int sm_a = 0;
-    if (stages & 1) {
+    if ((stages & 1) && wg) {
+        if (!k1w::plan(pw, weights[0], obs_dim_pad, weights[1], weights[2], ws, ws_rows, ws_cols))
+            return (int)cudaErrorInvalidValue;
+        pw.obs = (const bf16*)obs;
+        pw.action = (const int*)action;
+        pw.logp_old = (const float*)logp_old;
+        pw.value_old = (const float*)value_old;
+        pw.adv = (const float*)adv;
+        pw.target = (const float*)target;
+        for (int l = 0; l <= L; ++l) pw.b[l] = (const float*)biases[l];
+        pw.partial = (float*)partial_a;
+        pw.F = obs_dim;
+        pw.A = num_actions;
+        pw.relu = relu;
+        pw.N = cols;
+        pw.Npad = Npad;
+        pw.row_h0 = (int)row_h[0];
+        pw.row_h1 = (int)row_h[1];
+        pw.row_dh = (int)row_dh;
+        pw.row_dp0 = (int)row_dp[0];
+        pw.row_dp1 = (int)row_dp[1];
+        pw.clip = clip_eps;
+        pw.neg_inv_m = neg_inv_m;
+        pw.ent_scale = ent_scale;
+        pw.val_scale = val_scale;
+        sm_a = k1w::SMEM;
+        err = cudaFuncSetAttribute(k1w::wgmma_chain_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, sm_a);
+        if (err != cudaSuccess) return (int)err;
+    } else if (stages & 1) {
         pa.obs = (const bf16*)obs;
         pa.action = (const int*)action;
         pa.logp_old = (const float*)logp_old;
@@ -222,7 +265,14 @@ extern "C" int k1_bf16_launch(
 
     for (int t0 = 0; t0 < frames; t0 += chunk_frames) {
         const int n_frames = min(chunk_frames, frames - t0);
-        if (stages & 1) {
+        if ((stages & 1) && wg) {
+            pw.t0 = t0;
+            pw.frames = n_frames;
+            pw.first = t0 == 0;
+            k1w::wgmma_chain_kernel<<<blocks_a, k1w::THREADS, sm_a, s>>>(pw);
+            err = cudaGetLastError();
+            if (err != cudaSuccess) return (int)err;
+        } else if (stages & 1) {
             pa.t0 = t0;
             pa.frames = n_frames;
             pa.first = t0 == 0;

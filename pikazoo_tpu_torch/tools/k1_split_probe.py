@@ -10,13 +10,16 @@ of ``chip_smoke.k1_inputs``) it prints CUDA-event ms (min of two readings of
 
 - the whole call, kernel A alone and kernel B alone over the wrapper's chunks,
   and kernel B at 1 and 3 resident blocks an SM (``DW_BLOCKS_PER_SM``);
-- kernel A's cycles a block by phase (x load, hidden forward, head forward,
-  loss with the activations' copy-out, backward, the operands' copy-out),
-  from a build with clock stamps;
-- kernel A with parts taken out, each a build of the source with one
-  substitution (its results are wrong; only its time is read): ``rest``
-  without the weight stream and the mmas, ``notanh`` with the identity for
-  tanh, ``noloss`` without ``ppo_column``.
+- ``k1_split.cuh``'s ``chain_kernel`` (kernel A of every call that
+  ``fused_update.chain_design`` does not give to ``k1_wgmma.cuh``'s
+  ``wgmma_chain_kernel``; here the bf16 backward chain, ``bwd_bf16``, the
+  full-width mode that still runs it): its time, its cycles a block by phase
+  (x load, hidden forward, head forward, loss with the activations'
+  copy-out, backward, the operands' copy-out), from a build with clock
+  stamps, and its time with parts taken out, each a build of the source
+  with one substitution (its results are wrong; only its time is read):
+  ``rest`` without the weight stream and the mmas, ``notanh`` with the
+  identity for tanh, ``noloss`` without ``ppo_column``.
 
 The variants build into ``build/probe/``.
 """
@@ -148,9 +151,9 @@ def run() -> int:
     t_mb, _, n = obs.shape
     chunk = fu.chunk_frames(t_mb, n)
 
-    def stage(stages):
+    def stage(stages, bwd_bf16=False):
         return lambda: fu._run_bf16(params, obs, action, scalars, inv_m=1.0 / (t_mb * n),
-                                    chunk=chunk, stages=stages, **kw)
+                                    chunk=chunk, stages=stages, bwd_bf16=bwd_bf16, **kw)
 
     def ms(fn, reps=3):
         fn()
@@ -166,9 +169,10 @@ def run() -> int:
         print(f"  kernel B at {blocks} block(s) an SM: {ms(stage(fu.STAGE_DW)):.3f} ms", flush=True)
     fu.DW_BLOCKS_PER_SM = 2
 
+    chain = stage(fu.STAGE_CHAIN, bwd_bf16=True)
     lib = libs["cycles"]
     fu._library_bf16 = lambda: lib
-    stage(fu.STAGE_CHAIN)()
+    chain()
     torch.cuda.synchronize()
     buf = (ctypes.c_longlong * 4096)()
     lib.get_cyc(ctypes.cast(buf, ctypes.c_void_p))
@@ -177,19 +181,20 @@ def run() -> int:
                  torch.cuda.get_device_properties(0).multi_processor_count)
     cyc = torch.tensor(buf[:blocks * 6], dtype=torch.float64).view(blocks, 6)
     total = float(cyc.sum())
-    print("  kernel A, cycles a block by phase (mean over blocks, one call): " + ", ".join(
-        f"{name} {float(cyc[:, i].mean()):.3e} ({float(cyc[:, i].sum()) / total:.1%})"
-        for i, name in enumerate(PHASES))
-          + f"; total {float(cyc.sum(1).mean()):.3e} = "
+    phases = ", ".join(f"{name} {float(cyc[:, i].mean()):.3e} "
+                       f"({float(cyc[:, i].sum()) / total:.1%})" for i, name in enumerate(PHASES))
+    print("  chain_kernel (bwd_bf16), cycles a block by phase (mean over blocks, one call): "
+          + phases + f"; total {float(cyc.sum(1).mean()):.3e} = "
             f"{float(cyc.sum(1).mean()) / ghz * 1e-6:.2f} ms at the SM clock read after the "
             f"run, {ghz:.3f} GHz", flush=True)
 
-    times = {"kernel": ms(stage(fu.STAGE_CHAIN))}
+    fu._library_bf16 = lambda: real
+    times = {"kernel": ms(chain)}
     for name in VARIANTS:
         fu._library_bf16 = lambda lib=libs[name]: lib
-        times[name] = ms(stage(fu.STAGE_CHAIN))
+        times[name] = ms(chain)
     fu._library_bf16 = lambda: real
-    print("  kernel A alone with parts taken out (ms): " +
+    print("  chain_kernel (bwd_bf16) alone with parts taken out (ms): " +
           ", ".join(f"{k} {v:.3f}" for k, v in times.items()), flush=True)
     return 0
 

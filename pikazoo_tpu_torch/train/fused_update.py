@@ -25,8 +25,10 @@ bias gradients sum their f32 values; f32 loss sums.  On the card it runs as
 two kernels over chunks of whole frames: kernel A (:func:`k1_chain`, plain
 version :func:`k1_chain_plain`) walks the columns through the forward, the
 loss and the backward chain and writes the dW products' bf16 operands to a
-workspace; kernel B (:func:`k1_dw`, plain version :func:`k1_dw_plain`)
-computes each dW from them as one product over the columns.  Its other
+workspace (at hidden (256, 256) ``csrc/k1_wgmma.cuh``'s kernel on wgmma and
+TMA, else ``csrc/k1_split.cuh``'s on mma.sync: :func:`chain_design`); kernel
+B (:func:`k1_dw`, plain version :func:`k1_dw_plain`) computes each dW from
+them as one product over the columns.  Its other
 modes, as the JAX kernel's branches:
 
 - ``bwd_bf16=True``: the hidden gradient chain in bf16 arithmetic
@@ -88,6 +90,10 @@ VALUE_ROW = 32
 A_COMPUTE_THREADS = 512  # threads of a chain kernel that compute (K4 keeps f32 activations for each)
 MAX_LAYERS = 4   # hidden layers the kernels take
 MAX_WIDTH = 256  # widest hidden layer the kernels take
+# K1 bf16's wgmma kernel A (chain_design): two hidden layers of this width,
+# at most this many padded features.
+WGMMA_WIDTH = 256
+WGMMA_FEATURES = 48
 PLAIN_COLS = 16384  # columns (rows for K4) per chunk of the plain versions
 QUANT_MODES = ("none", "int8", "int8fwd")
 CELL_COLS = 1024    # the widest column cell of the int8 mode's dynamic scale
@@ -697,7 +703,7 @@ def _library_bf16() -> ctypes.CDLL:
                    + [_PTR, ctypes.c_int, _PTR, ctypes.c_int]  # partials of A and B
                    + [_PTR, _PTR, ctypes.c_int]     # out, stream, stages
                    + [_PTR, _PTR]                   # int8fwd: int8 weights, scales
-                   + [ctypes.c_int])                # bwd_bf16
+                   + [ctypes.c_int, ctypes.c_int])  # bwd_bf16, wgmma (chain_design)
     fn.restype = ctypes.c_int
     return lib
 
@@ -826,14 +832,31 @@ def _npad(n: int) -> int:
     return -(-n // COLS) * COLS
 
 
+def chain_design(hidden, obs_dim: int, num_actions: int, quant: str = "none",
+                 bwd_bf16: bool = False) -> str:
+    """Which kernel A serves K1's bf16 and int8fwd modes on the card, from the
+    shapes and the mode alone: ``"wgmma"`` (``csrc/k1_wgmma.cuh``'s
+    ``wgmma_chain_kernel``: wgmma and TMA, two ping-pong consumer
+    warpgroups) for the bf16 mode without the bf16 backward chain at hidden
+    (256, 256), at most 48 padded features and HEAD_PAD - 1 actions, tanh or
+    relu; ``"mma"`` (``csrc/k1_split.cuh``'s ``chain_kernel`` on mma.sync)
+    for every other call.  The wrapper passes the choice to
+    ``k1_bf16_launch``, which refuses ``"wgmma"`` for a call its kernel
+    cannot take (``k1w::takes``)."""
+    takes = (quant == "none" and not bwd_bf16 and list(hidden) == [WGMMA_WIDTH] * 2
+             and _round16(obs_dim) <= WGMMA_FEATURES and num_actions + 1 <= HEAD_PAD)
+    return "wgmma" if takes else "mma"
+
+
 def _bf16_call(obs, hidden, num_actions: int, ws, chunk: int, stages: int, net=None):
     """Launch K1 bf16's kernels over ``obs`` (T, F, N) through the workspace
     ``ws`` (rows, chunk * Npad) bf16, ``chunk`` frames at a time: kernel A,
     kernel B or both (``stages``).  ``net``, kernel A's inputs: (weights,
     biases, int32 action, the 4 per-column scalars, relu, the int8fwd
     forward's (int8 weights, scales) or None, bwd_bf16, clip, -1/M, entropy
-    and value scales).  Returns ``out``: every dW, then the bias grads and the 4 loss
-    sums, as :func:`_unpack` reads them."""
+    and value scales).  Kernel A is :func:`chain_design`'s.  Returns
+    ``out``: every dW, then the bias grads and the 4 loss sums, as
+    :func:`_unpack` reads them."""
     t_mb, f, n = obs.shape
     device = obs.device
     widths = [_round16(f), *hidden]
@@ -853,7 +876,7 @@ def _bf16_call(obs, hidden, num_actions: int, ws, chunk: int, stages: int, net=N
     q_ptrs = sw = None
     if net is None:
         w_ptrs = b_ptrs = None
-        ptrs, relu, bwd_bf16, scales = [None] * 5, 0, 0, (0.0,) * 4
+        ptrs, relu, bwd_bf16, scales, int8fwd = [None] * 5, 0, 0, (0.0,) * 4, None
     else:
         weights, biases, action, scalars, relu, int8fwd, bwd_bf16, *scales = net
         w_ptrs, _w = _ptr_array(weights)
@@ -862,23 +885,26 @@ def _bf16_call(obs, hidden, num_actions: int, ws, chunk: int, stages: int, net=N
             q_ptrs, _q = _ptr_array(int8fwd[0])
             sw = int8fwd[1].data_ptr()
         ptrs = [action.data_ptr(), *[x.data_ptr() for x in scalars]]
+    wgmma = chain_design(hidden, f, num_actions, "none" if int8fwd is None else "int8fwd",
+                         bool(bwd_bf16)) == "wgmma"
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _library_bf16().k1_bf16_launch(
             obs.data_ptr(), *ptrs, w_ptrs, b_ptrs, ctypes.cast(dims, _PTR), len(hidden), f,
             widths[0], num_actions, relu, t_mb, n, *scales, ws.data_ptr(), ws.shape[0],
             ws.shape[1], chunk, partial_a.data_ptr(), blocks_a, partial_b.data_ptr(), ranges,
-            out.data_ptr(), stream, stages, q_ptrs, sw, bwd_bf16)
+            out.data_ptr(), stream, stages, q_ptrs, sw, bwd_bf16, int(wgmma))
     if err != 0:
         raise RuntimeError(f"K1 bf16 kernel launch failed: CUDA error {err}")
-    _count(fused_ppo_grads_fm, stages, -(-t_mb // chunk), "bf16")
+    _count(fused_ppo_grads_fm, stages, -(-t_mb // chunk), "bf16",
+           "chain_wgmma" if wgmma else "chain")
     return out
 
 
-def _count(fn, stages: int, chunks: int, prefix: str) -> None:
+def _count(fn, stages: int, chunks: int, prefix: str, chain: str = "chain") -> None:
     """Add a launch's kernels to ``fn.launches_by_kernel``: kernel A
-    (``<prefix>_chain``) and kernel B (``<prefix>_dw``) once a chunk each."""
-    for bit, name in ((STAGE_CHAIN, "chain"), (STAGE_DW, "dw")):
+    (``<prefix>_<chain>``) and kernel B (``<prefix>_dw``) once a chunk each."""
+    for bit, name in ((STAGE_CHAIN, chain), (STAGE_DW, "dw")):
         if stages & bit:
             fn.launches_by_kernel[f"{prefix}_{name}"] += chunks
 
@@ -1305,8 +1331,10 @@ def fused_ppo_grads_fm(params: Params, obs: torch.Tensor, action: torch.Tensor,
 
 def zero_fm_counts() -> None:
     """Set K1's and K4's counts to 0: K1's calls, by mode, and the launches
-    of K1 bf16's kernels A and B (``bf16_chain``, ``bf16_dw``: the bf16 and
-    int8fwd modes, with or without the bf16 backward chain) and of each int8
+    of K1 bf16's kernels A and B (``bf16_chain`` for ``chain_kernel``,
+    ``bf16_chain_wgmma`` for ``wgmma_chain_kernel``, as :func:`chain_design`
+    picks, and ``bf16_dw``: the bf16 and int8fwd modes, with or without the
+    bf16 backward chain) and of each int8
     kernel (``INT8_KERNELS``), a call launching each once a chunk, kernel S
     once a chunk and layer; K4's calls and its kernels' launches
     (``k4_chain``, ``k4_dw``)."""
@@ -1314,7 +1342,7 @@ def zero_fm_counts() -> None:
     fused_ppo_grads_fm.launches_by_mode = {
         mode_name(q, bb): 0 for q in QUANT_MODES for bb in (False, True)}
     fused_ppo_grads_fm.launches_by_kernel = dict.fromkeys(
-        ("bf16_chain", "bf16_dw", *INT8_KERNELS), 0)
+        ("bf16_chain", "bf16_chain_wgmma", "bf16_dw", *INT8_KERNELS), 0)
     fused_ppo_grads.launches = 0
     fused_ppo_grads.launches_by_kernel = dict.fromkeys(("k4_chain", "k4_dw"), 0)
 

@@ -179,8 +179,8 @@ def test_stage_entries_run_plain_on_cpu(quant):
             fu.fused_ppo_grads_fm.launches_by_mode,
             fu.fused_ppo_grads_fm.launches_by_kernel) == before
     # The one-kernel design is gone: its launches are counted nowhere.
-    assert set(fu.fused_ppo_grads_fm.launches_by_kernel) == {"bf16_chain", "bf16_dw",
-                                                            *fu.INT8_KERNELS}
+    assert set(fu.fused_ppo_grads_fm.launches_by_kernel) == {"bf16_chain", "bf16_chain_wgmma",
+                                                            "bf16_dw", *fu.INT8_KERNELS}
     assert not hasattr(fu, "_library")
 
 
