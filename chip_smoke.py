@@ -34,8 +34,9 @@ its plain version over 300 frames of each seat mix, timed beside its bound.
 Every phase prints at least one line; any failure raises and the script exits non-zero.  The line
 before the last lists every kernel with its launches on the main path, its
 error against its plain version, its time, its plain version's time and its
-bound; the last line is a JSON object naming the device.  Without a CUDA
-device it exits with status 1 before printing any result.
+bound (by the benchmark's yardstick, ``benchmark/counts.py``); the last line
+is a JSON object naming the device.  Without a CUDA device it exits with
+status 1 before printing any result.
 """
 
 from __future__ import annotations
@@ -54,6 +55,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from benchmark import counts
+from benchmark.counts import (HBM_BYTES_PER_S, LANDING_ITERATION_OPS, PEAK_OPS_PER_S,
+                              THREEFRY_OPS)
 from pikazoo_tpu_torch import EnvConfig, PikaZoo, _build, fused_rollout, pikazoo_v0
 from pikazoo_tpu_torch.core import fused_step, predict, predict_cuda
 from pikazoo_tpu_torch.core import learner_step as learner_step_module
@@ -64,19 +68,20 @@ from pikazoo_tpu_torch.envs.pika_volley import EnvState, batch_keys
 from pikazoo_tpu_torch.policies import load_policy, policy_path
 from pikazoo_tpu_torch.tools import (compaction_probe, fm_kernel_probe, fm_roofline,
                                      k2_leap_probe, k3_probe)
-from pikazoo_tpu_torch.tools._timing import HOLD_CYCLES
-from pikazoo_tpu_torch.tools.k1_precision_probe import float64_plain
+from pikazoo_tpu_torch.tools._timing import HOLD_CYCLES, card_line
+from pikazoo_tpu_torch.tools.k1_precision_probe import (HIDDEN, K1_FULL, K1_KW, float64_plain,
+                                                        k1_inputs)
+from pikazoo_tpu_torch.tools.k2_leap_probe import AI_BATCH, HARVEST_FRAME, harvest_ball_states
 from pikazoo_tpu_torch.train import PPOConfig, make_ppo_trainer, ppo
 from pikazoo_tpu_torch.train import checkpoint, fused_update
 from pikazoo_tpu_torch.train import run as train_run
 from pikazoo_tpu_torch.train.evaluate import evaluate_vs_computer
 from pikazoo_tpu_torch.train.fused_update import fused_ppo_grads, fused_ppo_grads_fm
-from pikazoo_tpu_torch.train.networks import ActorCritic, apply_fm, dense_layers
+from pikazoo_tpu_torch.train.networks import apply_fm, dense_layers
 
-AI_BATCH, AI_FRAMES = 65536, 500          # rule-AI self-play (both seats)
+AI_FRAMES = 500  # rule-AI self-play (both seats), B=AI_BATCH
 RANDOM_BATCH, RANDOM_FRAMES = 262144, 200  # random-action self-play
 PARITY_BATCH, PARITY_FRAMES = 4096, 300    # card vs CPU, leaf by leaf
-HARVEST_FRAME = 300
 # The fused path: calls of FUSED_FRAMES frames each.
 FUSED_FRAMES = 100
 FUSED_AI_CALLS = 5        # B=AI_BATCH x 500 frames
@@ -110,35 +115,10 @@ def leaves(tree):
     return [leaf for sub in tree for leaf in leaves(sub)]
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-# The card's roofline (NVIDIA's published H100 SXM figures at 700 W): HBM
-# bytes/s and peak operations/s by type.  Integer work runs on the CUDA
-# cores' INT32 units: 132 SMs x 64 units x 1.98 GHz, one operation a unit a
-# clock.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "int32": 132 * 64 * 1.98e9}
-# Integer operations of one lane's landing-loop iteration, counted from
-# core/predict.py::_one_iteration (adds, compares, selects, abs, negations).
-LANDING_ITERATION_OPS = 28
-# Integer operations of one threefry2x32_first (csrc/fused_step.cu): the key
-# schedule's two xors, the two counter-key adds, 20 rounds of add, rotate
-# (one funnel shift on the card) and xor, and five key injections (three
-# operations each but the last, one).
-THREEFRY_OPS = 2 + 2 + 20 * 3 + 4 * 3 + 1
-
-
 def bound(nbytes: float, ops: dict):
-    """(bound_ms, bound_by): the larger of the bytes the function must move
-    over HBM's rate and its operations over the peak rate of their type."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = sum(float(n) / PEAK_OPS_PER_S[t] for t, n in ops.items()) * 1e3
-    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
+    """(bound_ms, bound_by): the benchmark's ``bound_s`` in milliseconds."""
+    seconds, by = counts.bound_s(nbytes, ops)
+    return seconds * 1e3, by
 
 
 def count_landing_iterations(fn):
@@ -183,18 +163,6 @@ def random_ball_states(n: int, seed: int, device):
     cols = (rng.integers(20, 433, n), rng.integers(0, 253, n),
             rng.integers(-20, 21, n), rng.integers(-60, 61, n))
     return tuple(torch.tensor(c, dtype=torch.int32, device=device) for c in cols)
-
-
-def harvest_ball_states(device, batch: int, frames: int):
-    """Ball (x, y, vx, vy) after ``frames`` frames of AI-vs-AI self-play."""
-    env = PikaZoo(EnvConfig(auto_reset=True, is_player1_computer=True,
-                            is_player2_computer=True))
-    state, _ = env.reset_batch(1, batch, device=device)
-    actions = torch.zeros((batch, 2), dtype=torch.int32, device=device)
-    for _ in range(frames):
-        state, _ = env.step_batch(state, actions)
-    b = state.ball
-    return b.x, b.y, b.x_velocity, b.y_velocity
 
 
 def compare_landing(name: str, balls) -> int:
@@ -451,9 +419,6 @@ def compare_devices(cfg: EnvConfig, label: str, seed: int):
           "every EnvState leaf and TimeStep field equal on every frame")
 
 # K1, K4 and the learner (phases 9-12).
-K1_KW = dict(num_actions=18, clip_eps=0.2, value_coef=0.5, entropy_coef=0.01)
-K1_FULL = (32, 131072)  # a full-width minibatch: 32 frames x 2B = 131072 columns
-HIDDEN = (256, 256)
 # (losses rtol, grad leaf relative L2, grad leaf cos).  Kernel vs plain differ
 # in summation order and so in rare bf16 roundings.  Every mode and K4 are
 # held to it.
@@ -506,29 +471,6 @@ P3_VALUE_PATH_REL = 2e-5
 # width): 3 such columns of 4,194,304 put dheads 2e-3 from the plain
 # version's (relative L2, measured on an H100).
 CLIP_EDGE = 1e-5
-
-
-def k1_inputs(frames: int, cols: int, activation: str, seed: int, hidden=HIDDEN):
-    """A minibatch built as tests/test_fused_update.py:32-46 builds one, from
-    numpy: uniform bf16 observations, uniform actions, logp_old of the
-    network perturbed by 0.3 N(0, 1) so that both clip branches fire,
-    normalised N(0, 1) advantages, targets = value + N(0, 1)."""
-    rng = np.random.default_rng(seed)
-    net = ActorCritic(18, hidden, activation,
-                      generator=torch.Generator().manual_seed(seed))
-    params = {k: v.detach().cuda() for k, v in net.params().items()}
-    card = lambda a: torch.from_numpy(a).cuda()
-    obs = card(rng.random((frames, 35, cols), dtype=np.float32)).to(torch.bfloat16)
-    action = card(rng.integers(0, 18, (frames, cols)).astype(np.int32))
-    logits, value = apply_fm(params, obs.permute(1, 0, 2).reshape(35, -1), activation)
-    logp = torch.log_softmax(logits, 0).gather(0, action.reshape(1, -1).long())
-    logp_old = logp.reshape(frames, cols) + 0.3 * card(
-        rng.standard_normal((frames, cols), dtype=np.float32))
-    adv = card(rng.standard_normal((frames, cols), dtype=np.float32))
-    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
-    value = value.reshape(frames, cols)
-    target = value + card(rng.standard_normal((frames, cols), dtype=np.float32))
-    return params, obs, action, logp_old, value, adv, target
 
 
 def rows_of(args):
@@ -974,22 +916,25 @@ def time_grads(label: str, fn, plain, args, kw, card: str, phase: int):
     return min(k1, k2), min(p1, p2)
 
 
-def grad_bound(rows: int, quant: str = "none", f: int = 35, num_actions: int = 18):
+def grad_bound(rows: int, quant: str = "none"):
     """(bound_ms, bound_by) of one PPO-gradient call over ``rows`` columns
     at HIDDEN: the inputs read and the grads written once, and the products'
-    operations by type (forward, the dW products, the dh products; an int8
-    mode moves its products to the int8 rate, but for the two bf16 head
-    products of the int8 backward)."""
-    widths = [f, *HIDDEN]
+    operations by type (forward, the dW products, the dh products).  The bf16
+    mode's is the benchmark's ``grad_bound_s``; an int8 mode moves its
+    products to the int8 rate, but for the two bf16 head products of the int8
+    backward."""
+    if quant == "none":
+        seconds, by = counts.grad_bound_s(rows, HIDDEN)
+        return seconds * 1e3, by
+    widths = counts.mlp_widths(HIDDEN)
     hidden = 2 * sum(i * o for i, o in zip(widths[:-1], widths[1:]))  # one pass
     hidden_dh = 2 * sum(i * o for i, o in zip(widths[1:-1], widths[2:]))
-    head = 2 * widths[-1] * (num_actions + 1)
+    head = 2 * widths[-1] * (K1_KW["num_actions"] + 1)
     forward, backward = hidden + head, hidden + 2 * head + hidden_dh
-    ops = {"none": {"bf16": forward + backward},
-           "int8fwd": {"int8": forward, "bf16": backward},
+    ops = {"int8fwd": {"int8": forward, "bf16": backward},
            "int8": {"int8": forward + hidden + hidden_dh, "bf16": 2 * head}}[quant]
-    n_params = sum(i * o + o for i, o in zip(widths, [*widths[1:], num_actions])) + widths[-1] + 1
-    nbytes = rows * (f * 2 + 5 * 4) + n_params * (4 + 4)
+    n_params = counts.param_count(HIDDEN, K1_KW["num_actions"])
+    nbytes = rows * (widths[0] * 2 + 5 * 4) + n_params * (4 + 4)
     return bound(nbytes, {t: rows * n for t, n in ops.items()})
 
 

@@ -1,8 +1,10 @@
 """Timing shared by the probe tools: CUDA events on the card, the host's
-clock on the CPU (where a time says nothing of the card)."""
+clock on the CPU (where a time says nothing of the card), and the card's
+name and power limit to print beside a time."""
 
 from __future__ import annotations
 
+import subprocess
 import time
 from typing import Callable
 
@@ -58,3 +60,12 @@ def resolve(name: str, tool: str) -> torch.device:
         raise RuntimeError(f"{tool} runs on a CUDA card; pass --device cpu for the plain "
                            "versions on the CPU")
     return device
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reads them: every
+    time on the card is printed beside it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

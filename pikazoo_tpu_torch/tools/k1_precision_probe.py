@@ -6,7 +6,8 @@ nvcc:
 Every mode runs its split kernels (``SOURCES``): the bf16 and int8fwd modes,
 with or without the bf16 backward chain, ``csrc/fused_update_bf16.cu``, and
 the int8 mode ``csrc/fused_update_int8.cu``.  At full width (T=32 frames x
-N=131072 columns, hidden (256, 256), the inputs of ``chip_smoke.k1_inputs``)
+N=131072 columns, hidden (256, 256), the inputs of ``k1_inputs``, which
+``chip_smoke.py``'s phases 9-11 use too)
 it prints, for each mode beside its source, the worst grad leaf's relative
 L2 of kernel vs plain (K-P), kernel vs the plain version with float64
 products (K-D) and plain vs that (P-D).  A kernel whose sums lean one way
@@ -20,18 +21,47 @@ from __future__ import annotations
 
 import argparse
 import sys
-from pathlib import Path
 
+import numpy as np
 import torch
 
+from pikazoo_tpu_torch.tools._timing import card_line
 from pikazoo_tpu_torch.train import fused_update as fu
+from pikazoo_tpu_torch.train.networks import ActorCritic, apply_fm
 
-ROOT = Path(__file__).resolve().parents[2]
+# K1's minibatch recipe: the keywords, the full-width shape and the widths
+# (``chip_smoke.py``'s phases 9-12 use them too).
+K1_KW = dict(num_actions=18, clip_eps=0.2, value_coef=0.5, entropy_coef=0.01)
+K1_FULL = (32, 131072)  # a full-width minibatch: 32 frames x 2B = 131072 columns
+HIDDEN = (256, 256)
 # Each mode's keywords, keyed by ``fu.mode_name``, and its kernels' source.
 MODES = {"none": {}, "int8fwd": dict(quant="int8fwd"), "bwd_bf16": dict(bwd_bf16=True),
          "int8fwd+bwd_bf16": dict(quant="int8fwd", bwd_bf16=True), "int8": dict(quant="int8")}
 SOURCES = {mode: "fused_update_int8.cu" if kw.get("quant") == "int8" else "fused_update_bf16.cu"
            for mode, kw in MODES.items()}
+
+
+def k1_inputs(frames: int, cols: int, activation: str, seed: int, hidden=HIDDEN):
+    """A minibatch built as tests/test_fused_update.py:32-46 builds one, from
+    numpy: uniform bf16 observations, uniform actions, logp_old of the
+    network perturbed by 0.3 N(0, 1) so that both clip branches fire,
+    normalised N(0, 1) advantages, targets = value + N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    net = ActorCritic(18, hidden, activation,
+                      generator=torch.Generator().manual_seed(seed))
+    params = {k: v.detach().cuda() for k, v in net.params().items()}
+    card = lambda a: torch.from_numpy(a).cuda()
+    obs = card(rng.random((frames, 35, cols), dtype=np.float32)).to(torch.bfloat16)
+    action = card(rng.integers(0, 18, (frames, cols)).astype(np.int32))
+    logits, value = apply_fm(params, obs.permute(1, 0, 2).reshape(35, -1), activation)
+    logp = torch.log_softmax(logits, 0).gather(0, action.reshape(1, -1).long())
+    logp_old = logp.reshape(frames, cols) + 0.3 * card(
+        rng.standard_normal((frames, cols), dtype=np.float32))
+    adv = card(rng.standard_normal((frames, cols), dtype=np.float32))
+    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    value = value.reshape(frames, cols)
+    target = value + card(rng.standard_normal((frames, cols), dtype=np.float32))
+    return params, obs, action, logp_old, value, adv, target
 
 
 def float64_products(fn, *args, **kw):
@@ -61,14 +91,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("k1_precision_probe needs a card", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke  # the minibatch recipe of phases 9-11
-
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = chip_smoke.card_line()
-    tanh = dict(chip_smoke.K1_KW, activation="tanh")
-    frames, cols = chip_smoke.K1_FULL
-    args = chip_smoke.k1_inputs(frames, cols, "tanh", 21)
+    card = card_line()
+    tanh = dict(K1_KW, activation="tanh")
+    frames, cols = K1_FULL
+    args = k1_inputs(frames, cols, "tanh", 21)
     print(f"modes at T={frames} N={cols} [{card}]")
     for mode, mkw in MODES.items():
         kw = dict(tanh, **mkw)

@@ -2,10 +2,10 @@
 turns, the SASS of one jump, and the frame loop's code unchanged.  Needs a
 card and nvcc:
 
-    python3 -m pikazoo_tpu_torch.tools.k2_leap_probe [--parent DIR] [--variants loop_root]
+    python3 -m pikazoo_tpu_torch.tools.k2_leap_probe [--parent DIR]
 
-On the B=65536 frame-300 AI self-play states (``chip_smoke.py``'s phase 3
-and 20 states) it prints:
+On the B=65536 frame-300 AI self-play states (``harvest_ball_states``, the
+states of ``chip_smoke.py``'s phases 3 and 20) it prints:
 
 - ``-Xptxas -v`` of each build's ``landing_kernel`` instances;
 - the SASS of one jump, by net rule: the instructions of a kernel that
@@ -18,18 +18,15 @@ and 20 states) it prints:
   K2's ``iter`` instance and of every kernel of ``fused_step.cu`` and
   ``flat_sims.cu``, parent against change;
 - ms a launch of each leap mode of each build in turns, first to last and
-  back (parent, change, the ``--variants``: the design with one of its
-  choices taken back or one added, ``VARIANTS``), with the change's
-  ``iter`` before and after, the stream held;
+  back (parent, change, change, parent), with the change's ``iter`` before
+  and after, the stream held;
 
 and holds every result bit-equal to the change's ``iter``, itself held
 against the plain version.  ``--parent DIR`` is the root of a checkout (or
 its ``csrc/``): unpack the parent commit with ``git archive`` under
-``build/``.  Builds go into ``build/probe/k2/``.  A variant is a text
-substitution of this tree's header: one whose anchor the header no longer
-holds once raises, and is then brought up to date or dropped.  ``--device
-cpu`` runs each mode's plain version on seeded states at a small batch and
-checks them equal to the frame loop (no times).
+``build/``.  Builds go into ``build/probe/k2/``.  ``--device cpu`` runs
+each mode's plain version on seeded states at a small batch and checks
+them equal to the frame loop (no times).
 """
 
 from __future__ import annotations
@@ -47,49 +44,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pikazoo_tpu_torch import _build
+from pikazoo_tpu_torch import EnvConfig, PikaZoo, _build
 from pikazoo_tpu_torch.core import predict
-from pikazoo_tpu_torch.tools._timing import resolve, timer
+from pikazoo_tpu_torch.tools._timing import card_line, resolve, timer
 
 ROOT = Path(__file__).resolve().parents[2]
 OUT = ROOT / "build" / "probe" / "k2"
 MODES = ("leap", "hyb", "leap,iter", "iter,leap")
-# Where a variant acts on the jump: before its span.
-SPAN = "  const int32_t k = leap_span(b, avy);\n"
-
-
-def vote(gain: int) -> list:
-    """The warp's vote at ``gain``: a trip skips its jump when no active
-    lane of the warp would gain more than ``gain`` iterations from it (k <=
-    gain iff cap <= gain or dist < displacement(gain + 1)), and each lane
-    then takes the trip's exact iterations, as the frame loop does."""
-    cond = f"b.cap <= {gain} || b.dist < displacement({gain + 1}, avy)"
-    return [(SPAN, "#if defined(__CUDA_ARCH__)\n"
-             f"  if (__all_sync(__activemask(), {cond})) return;\n#endif\n" + SPAN)]
-
-
-# name -> (old, new) substitutions of csrc/landing_sim.cuh: the design with
-# one of its choices taken back, or the warp's vote added.
-VARIANTS = {
-    # The seed's square root correctly rounded (sqrtf) instead of MUFU.RSQ's.
-    "ieee_sqrt": [("  float r;\n  asm(\"rsqrt.approx.ftz.f32 %0, %1;\" : \"=f\"(r) : \"f\"(s));\n"
-                   "  return s * r;", "  return sqrtf(s);")],
-    # The root's checks as loops everywhere, not as one-step selects inside
-    # its box.
-    "loop_root": [("  return avy < kRootAvy && b.dist < kRootD ? k_disp_in_box(avy, b.dist)\n"
-                   "                                           : k_disp(avy, b.dist);",
-                   "  return k_disp(avy, b.dist);")],
-    # What a jump costs in frame iterations: each trip computes its jump and
-    # drops it, so the loop runs the frame loop's trips, each with a jump.
-    "jump_cost": [(SPAN, SPAN + "  asm volatile(\"\" : : \"r\"(k));\n  if (k >= 0) return;\n")],
-    # The same with the bound alone (no span): the trip leaves on a test of
-    # the bound that always holds (dist never nears -2^31) but that the
-    # compiler cannot fold (an empty asm alone lets ptxas drop the bound).
-    "bound_cost": [(SPAN, "  if ((uint32_t(b.cap) ^ uint32_t(b.dist)) != 0x80000001u) return;\n"
-                    + SPAN)],
-    # The warp's vote at gains 0-2.
-    **{f"vote{g}": vote(g) for g in (0, 1, 2)},
-}
+AI_BATCH = 65536  # rule-AI self-play (both seats)
+HARVEST_FRAME = 300
 # The SASS opcodes of a jump's costly classes, by the prefix of the opcode.
 SASS_CLASSES = {
     "conversions": ("I2F", "F2I", "I2FP", "F2IP"),
@@ -100,6 +63,18 @@ SASS_CLASSES = {
 }
 _SASS_FUNCTION = re.compile(r"^\s*Function : (\S+)")
 _SASS_INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+
+
+def harvest_ball_states(device, batch: int, frames: int):
+    """Ball (x, y, vx, vy) after ``frames`` frames of AI-vs-AI self-play."""
+    env = PikaZoo(EnvConfig(auto_reset=True, is_player1_computer=True,
+                            is_player2_computer=True))
+    state, _ = env.reset_batch(1, batch, device=device)
+    actions = torch.zeros((batch, 2), dtype=torch.int32, device=device)
+    for _ in range(frames):
+        state, _ = env.step_batch(state, actions)
+    b = state.ball
+    return b.x, b.y, b.x_velocity, b.y_velocity
 
 
 def csrc_of(path: str) -> Path:
@@ -272,27 +247,6 @@ def ptxas_lines(csrc: Path) -> list:
     return lines
 
 
-def apply_variant(text: str, substitutions) -> str:
-    """``text`` with each (old, new) of ``substitutions`` made; raises
-    RuntimeError unless each ``old`` stands in it once."""
-    for old, new in substitutions:
-        if text.count(old) != 1:
-            raise RuntimeError(f"probe anchor not found once in landing_sim.cuh: {old!r}")
-        text = text.replace(old, new)
-    return text
-
-
-def variant_csrc(name: str) -> Path:
-    """This tree's ``csrc/`` with VARIANTS[name] applied to its header,
-    under ``build/probe/k2/<name>/``."""
-    out = OUT / name
-    shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(_build.CSRC_DIR, out)
-    header = out / "landing_sim.cuh"
-    header.write_text(apply_variant(header.read_text(), VARIANTS[name]))
-    return out
-
-
 def in_turns(calls: dict, order, reps: int) -> dict:
     """ms a launch of each of ``calls`` timed in ``order`` (names may
     repeat), the stream held: {name: [ms, ...]}."""
@@ -316,8 +270,6 @@ def run_card(opts, card: str, live) -> int:
     csrcs = {"change": _build.CSRC_DIR}
     if opts.parent:
         csrcs = {"parent": csrc_of(opts.parent), **csrcs}
-    for name in filter(None, opts.variants.split(",")):
-        csrcs[name] = variant_csrc(name)
     with ThreadPoolExecutor(max_workers=len(csrcs)) as pool:
         futures = {name: pool.submit(load_landing, f"landing_{name}", c)
                    for name, c in csrcs.items()}
@@ -378,18 +330,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--parent", default="", help="a checkout (or its csrc/) to time beside")
-    ap.add_argument("--variants", default="", help=f"comma-separated of {sorted(VARIANTS)}")
     ap.add_argument("--reps", type=int, default=50, help="launches a timing")
     ap.add_argument("--batch", type=int, default=512, help="envs on the CPU")
     opts = ap.parse_args(argv)
     device = resolve(opts.device, "k2_leap_probe")
     if device.type == "cpu":
         return run_cpu(opts)
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke  # the card's name and power limit, the live states
-
-    live = chip_smoke.harvest_ball_states(device, chip_smoke.AI_BATCH, chip_smoke.HARVEST_FRAME)
-    return run_card(opts, chip_smoke.card_line(), live)
+    live = harvest_ball_states(device, AI_BATCH, HARVEST_FRAME)
+    return run_card(opts, card_line(), live)
 
 
 if __name__ == "__main__":

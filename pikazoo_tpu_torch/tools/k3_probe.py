@@ -1,8 +1,8 @@
 """K3 (``csrc/fused_step.cu``, the fused rollout) on the card: its time
-beside other builds of it, its landing pool's lane efficiency, and the work
-of its landing loops counted on the plain version.  Needs a card and nvcc:
+beside another tree's build of it, its landing pool's lane efficiency, and
+the work of its landing loops counted on the plain version.  Needs a card and nvcc:
 
-    python3 -m pikazoo_tpu_torch.tools.k3_probe [--parent DIR] [--variants threads256]
+    python3 -m pikazoo_tpu_torch.tools.k3_probe [--parent DIR]
 
 From a live AI self-play state (B=65536 after 500 fused frames) and a live
 random-action state (B=262144 after 200), it prints:
@@ -22,10 +22,8 @@ random-action state (B=262144 after 200), it prints:
 
 ``--parent DIR`` adds the build of another tree's ``csrc/`` (DIR is the
 root of a checkout, or its ``csrc`` directory): unpack the parent commit
-with ``git archive`` under ``build/``.  ``--variants`` adds builds of this
-tree's source with the substitutions of ``VARIANTS``.  Builds go into
-``build/probe/``.  ``--device cpu`` prints ``landing_work``'s counts at a
-small batch instead (no times).
+with ``git archive`` under ``build/``.  ``--device cpu`` prints
+``landing_work``'s counts at a small batch instead (no times).
 """
 
 from __future__ import annotations
@@ -33,7 +31,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
-import shutil
 import sys
 from pathlib import Path
 from typing import NamedTuple
@@ -45,21 +42,12 @@ from pikazoo_tpu_torch.core import constants as C
 from pikazoo_tpu_torch.core import engine, fused_step, predict
 from pikazoo_tpu_torch.core.rng import site_value
 from pikazoo_tpu_torch.envs import EnvConfig, PikaZoo
-from pikazoo_tpu_torch.tools._timing import resolve, timer
+from pikazoo_tpu_torch.tools._timing import card_line, resolve, timer
 
-ROOT = Path(__file__).resolve().parents[2]
-OUT = ROOT / "build" / "probe"
 WARP = 32
 AI_CONFIG = EnvConfig(auto_reset=True, is_player1_computer=True,
                       is_player2_computer=True)
 FRAMES = 100
-# name -> (old, new) substitutions of csrc/fused_step.cu.
-VARIANTS = {
-    "threads256": [("constexpr int kThreads = 128;", "constexpr int kThreads = 256;")],
-    # The stores' base without the empty asm: nvcc keeps the loads' 56
-    # addresses live across the frames.
-    "live_addresses": [('  asm volatile("" : "+l"(out));\n', "")],
-}
 
 
 class LandingWork(NamedTuple):
@@ -205,22 +193,11 @@ def pool_report(counts: dict, work: LandingWork) -> str:
             f"frames that continue the previous frame's trajectory")
 
 
-def build(name: str, csrc: Path, subs=()) -> ctypes.CDLL:
-    """``csrc/fused_step.cu`` of ``csrc`` with ``subs`` applied, built into
-    ``build/probe/<name>/`` with the port's nvcc flags, bound as the repo's
+def build(csrc: Path) -> ctypes.CDLL:
+    """``csrc``'s ``fused_step.cu`` built with the port's nvcc flags (into
+    ``build/kernels/``, named by a hash of its sources), bound as the repo's
     library is."""
-    out = OUT / name
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
-    for header in csrc.glob("*.cuh"):
-        shutil.copy(header, out / header.name)
-    src = (csrc / "fused_step.cu").read_text()
-    for old, new in subs:
-        if src.count(old) != 1:
-            raise RuntimeError(f"probe anchor not found once in fused_step.cu: {old!r}")
-        src = src.replace(old, new)
-    (out / "fused_step.cu").write_text(src)
-    lib = ctypes.CDLL(str(_build.build("fused_step", ("fused_step.cu",), csrc=out)))
+    lib = ctypes.CDLL(str(_build.build("fused_step", ("fused_step.cu",), csrc=csrc)))
     lib.fused_rollout_launch.argtypes = fused_step._library().fused_rollout_launch.argtypes
     lib.fused_rollout_launch.restype = ctypes.c_int
     return lib
@@ -271,12 +248,9 @@ def run_card(opts, card: str) -> int:
     if opts.parent:
         csrc = Path(opts.parent)
         csrc = csrc / "pikazoo_tpu_torch" / "csrc" if (csrc / "pikazoo_tpu_torch").is_dir() else csrc
-        libs["parent"] = build("parent", csrc)
-        sources["parent"] = OUT / "parent"
-    for name in filter(None, opts.variants.split(",")):
-        libs[name] = build(name, _build.CSRC_DIR, VARIANTS[name])
-        sources[name] = OUT / name
-    if "parent" in libs:  # parent first: parent, change, ..., change, parent
+        libs["parent"] = build(csrc)
+        sources["parent"] = csrc
+    if "parent" in libs:  # parent first: parent, change, change, parent
         libs = {"parent": libs.pop("parent"), **libs}
     for name, csrc in sources.items():
         for line in instance_lines(csrc / "fused_step.cu"):
@@ -315,7 +289,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--parent", default="", help="a checkout (or its csrc/) to time beside")
-    ap.add_argument("--variants", default="", help=f"comma-separated of {sorted(VARIANTS)}")
     ap.add_argument("--reps", type=int, default=20, help="calls a timing")
     ap.add_argument("--batch", type=int, default=1024, help="envs on the CPU")
     ap.add_argument("--frames", type=int, default=20, help="frames on the CPU")
@@ -323,10 +296,7 @@ def main(argv=None) -> int:
     device = resolve(opts.device, "k3_probe")
     if device.type == "cpu":
         return run_cpu(opts)
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke  # the card's name and power limit
-
-    return run_card(opts, chip_smoke.card_line())
+    return run_card(opts, card_line())
 
 
 if __name__ == "__main__":

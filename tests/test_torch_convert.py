@@ -1,6 +1,7 @@
 """Env state carried across between the JAX package and the port: the round
 trip is exact, and a carried-across state steps exactly as in JAX."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -84,3 +85,20 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_port_imports_no_chip_smoke():
+    """chip_smoke.py is a script at the checkout's root that imports the
+    package's tools; no module of the package imports it back."""
+    offenders = []
+    for path in sorted((REPO / "pikazoo_tpu_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] + [alias.name for alias in node.names]
+            else:
+                continue
+            if any(name.split(".")[0] == "chip_smoke" for name in names):
+                offenders.append(f"{path.relative_to(REPO)}:{node.lineno}")
+    assert not offenders, offenders

@@ -172,16 +172,21 @@ def test_stage_entries_run_plain_on_cpu():
     assert fu._ws_rows([32, 16]) == ([0, 32], 48, [80, 112], 128)
 
 
-def test_split_probe_anchors_match_the_source():
-    """tools/k1_split_probe.py builds its variants by substitution in
-    csrc/fused_update_bf16.cu with csrc/k1_split.cuh (kernel A) inlined; each
-    anchor must be there exactly once, and without a card the tool refuses
-    before it builds anything."""
-    from pikazoo_tpu_torch.tools import k1_split_probe
 
-    src = k1_split_probe.source()
-    assert "chain_kernel" in src and '#include "k1_split.cuh"' not in src
-    assert "clock64" in k1_split_probe.substitute(src, k1_split_probe.CYCLES)
-    for pairs in k1_split_probe.VARIANTS.values():
-        assert k1_split_probe.substitute(src, pairs) != src
-    assert k1_split_probe.main([]) == 1
+@pytest.mark.parametrize("quant, bound_ms", [("none", 1.94337), ("int8fwd", 1.60664),
+                                             ("int8", 1.01247)])
+def test_chip_smoke_takes_the_benchmark_yardstick(quant, bound_ms):
+    """chip_smoke.py's bounds come from benchmark/counts.py's constants and
+    arithmetic, so the bound a kernel is printed beside and the one the
+    benchmark's roofline metrics divide by cannot drift apart.  K1 at full
+    width (32 x 131,072 columns, hidden (256, 256)) reads the bounds that
+    PERF.md quotes."""
+    import chip_smoke
+    from benchmark import counts
+
+    assert chip_smoke.PEAK_OPS_PER_S is counts.PEAK_OPS_PER_S
+    rows = 32 * 131072
+    got = chip_smoke.grad_bound(rows, quant)
+    assert got[0] == pytest.approx(bound_ms, rel=1e-4) and got[1] == "operations"
+    if quant == "none":
+        assert got[0] == counts.grad_bound_s(rows, chip_smoke.HIDDEN)[0] * 1e3

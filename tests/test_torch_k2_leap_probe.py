@@ -1,9 +1,7 @@
 """``tools/k2_leap_probe.py`` on the CPU: its probe kernel's source against
-the landing header, its SASS reading, its kernel matching, its variants'
-substitution and its plain run.  Its times, builds and disassembly need a
-card and nvcc; there it runs as ``python3 -m
-pikazoo_tpu_torch.tools.k2_leap_probe``.  The variants' anchors are held
-against the header only there, so the header's text stays free to change."""
+the landing header, its SASS reading, its kernel matching, its checkout
+paths and its plain run.  Its times, builds and disassembly need a card and
+nvcc; there it runs as ``python3 -m pikazoo_tpu_torch.tools.k2_leap_probe``."""
 
 import shutil
 import subprocess
@@ -100,31 +98,3 @@ def test_cpu_run_holds_every_mode(capsys):
     assert k2_leap_probe.main(["--device", "cpu", "--batch", "64"]) == 0
     assert "each bit-equal to the frame loop" in capsys.readouterr().out
 
-
-def test_apply_variant_substitutes_each_anchor_once():
-    """Each (old, new) is made once; an anchor that stands nowhere, or twice,
-    raises, so a stale variant cannot build a tree it was not meant for."""
-    subs = [("b;\n", "b2;\n"), ("c;\n", "")]
-    assert k2_leap_probe.apply_variant("a;\nb;\nc;\n", subs) == "a;\nb2;\n"
-    for text in ("a;\nc;\n", "b;\nb;\nc;\n"):
-        with pytest.raises(RuntimeError, match="anchor"):
-            k2_leap_probe.apply_variant(text, subs)
-
-
-def test_variant_csrc_copies_csrc_and_edits_the_header(monkeypatch, tmp_path):
-    """A variant's tree is a copy of csrc/ under OUT whose header alone
-    carries the substitution; every vote variant acts before the span."""
-    csrc = tmp_path / "csrc"
-    csrc.mkdir()
-    (csrc / "landing_sim.cuh").write_text("x;\n" + k2_leap_probe.SPAN)
-    (csrc / "landing.cu").write_text("// launch\n")
-    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
-    monkeypatch.setattr(k2_leap_probe, "OUT", tmp_path / "out")
-    monkeypatch.setitem(k2_leap_probe.VARIANTS, "t", [("x;\n", "y;\n")])
-    out = k2_leap_probe.variant_csrc("t")
-    assert out == tmp_path / "out" / "t"
-    assert (out / "landing_sim.cuh").read_text() == "y;\n" + k2_leap_probe.SPAN
-    assert (out / "landing.cu").read_text() == "// launch\n"
-    voted = (k2_leap_probe.variant_csrc("vote2") / "landing_sim.cuh").read_text()
-    assert "__all_sync(__activemask(), b.cap <= 2 || b.dist < displacement(3, avy))" in voted
-    assert voted.endswith("#endif\n" + k2_leap_probe.SPAN)
